@@ -1,0 +1,47 @@
+"""The port (icafusion_tpu_torch) and chip_smoke.py import no JAX, no flax
+and nothing of the JAX package, in a fresh interpreter."""
+
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+PROBE = """
+import importlib, pkgutil, sys
+import icafusion_tpu_torch
+names = ["icafusion_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    icafusion_tpu_torch.__path__, "icafusion_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]", bad
+    assert int(n) >= 15, out.stdout      # every module was walked
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Outside a checkout, and here without a card, the smoke run exits
+    non-zero and prints no result line. (With a card, the checkout's own
+    script would run in full, so it is only started where there is none.)"""
+    import torch
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    runs = [alone]
+    if not torch.cuda.is_available():
+        runs.append(REPO / "chip_smoke.py")
+    for script in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0, script
+        assert '"ok": true' not in out.stdout
