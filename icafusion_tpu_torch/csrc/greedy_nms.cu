@@ -19,6 +19,14 @@
 // picked box is read back from global memory (an L1/L2 hit) instead of
 // costing a third barrier. Images run in parallel, one block each.
 //
+// A pool larger than the registers hold (K > kRegK = 8192) takes a second
+// path: the first 8192 candidates stay in registers as above, and each
+// thread's candidates beyond them (j = kRegK + r * kThreads + tid) keep their
+// active score in a global scratch (B, K) that the wrapper allocates. Every
+// step scans those entries in the argmax and suppresses them against the
+// pick, reading their boxes from global memory (L2-resident). Only the
+// owning thread touches an entry, so the scratch needs no barrier.
+//
 // The IoU arithmetic uses __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn, which the
 // compiler never contracts into fused multiply-adds, so a candidate exactly
 // at the threshold is suppressed as the CPU and the plain PyTorch loop
@@ -32,16 +40,38 @@ namespace {
 
 constexpr int kThreads = 512;   // kernels/nms.py: THREADS
 constexpr int kWarps = kThreads / 32;
+constexpr int kRegItems = 16;   // kernels/nms.py: MAX_ITEMS
+constexpr int kRegK = kThreads * kRegItems;
 
 // (v, i) beats (bv, bi): larger score, or equal score and lower index
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <int ITEMS>
+// IoU of a candidate with the pick, in the order of kernels/nms.py:50-55
+__device__ __forceinline__ float iou_rn(float x1, float y1, float x2,
+                                        float y2, float area, float px1,
+                                        float py1, float px2, float py2,
+                                        float barea) {
+  const float iw = fmaxf(__fsub_rn(fminf(x2, px2), fmaxf(x1, px1)), 0.f);
+  const float ih = fmaxf(__fsub_rn(fminf(y2, py2), fmaxf(y1, py1)), 0.f);
+  const float inter = __fmul_rn(iw, ih);
+  const float den = __fadd_rn(__fsub_rn(__fadd_rn(area, barea), inter),
+                              1e-12f);
+  return __fdiv_rn(inter, den);
+}
+
+__device__ __forceinline__ float area_rn(float x1, float y1, float x2,
+                                         float y2) {
+  return __fmul_rn(__fsub_rn(x2, x1), __fsub_rn(y2, y1));
+}
+
+// SPILL: K > kRegK, ITEMS == kRegItems, candidates from kRegK on in `active`
+template <int ITEMS, bool SPILL>
 __global__ void __launch_bounds__(kThreads)
 greedy_nms_kernel(const float* __restrict__ boxes,   // (B, K, 4)
                   const float* __restrict__ scores,  // (B, K)
+                  float* __restrict__ active,        // (B, K) or null
                   int* __restrict__ keep,            // (B, max_det)
                   bool* __restrict__ ok,             // (B, max_det)
                   int K, int max_det, float iou_thres) {
@@ -62,13 +92,16 @@ greedy_nms_kernel(const float* __restrict__ boxes,   // (B, K, 4)
       y1[r] = bx[j * 4 + 1];
       x2[r] = bx[j * 4 + 2];
       y2[r] = bx[j * 4 + 3];
-      area[r] = __fmul_rn(__fsub_rn(x2[r], x1[r]), __fsub_rn(y2[r], y1[r]));
+      area[r] = area_rn(x1[r], y1[r], x2[r], y2[r]);
       act[r] = sc[j];
     } else {
       x1[r] = y1[r] = x2[r] = y2[r] = area[r] = 0.f;
       act[r] = -FLT_MAX;   // never wins: real scores are >= -1
     }
   }
+  float* spill = SPILL ? active + (size_t)b * K : nullptr;
+  if (SPILL)
+    for (int j = kRegK + tid; j < K; j += kThreads) spill[j] = sc[j];
 
   __shared__ float s_val[kWarps];
   __shared__ int s_idx[kWarps];
@@ -83,6 +116,9 @@ greedy_nms_kernel(const float* __restrict__ boxes,   // (B, K, 4)
       const int j = r * kThreads + tid;
       if (j < K && better(act[r], j, bv, bi)) { bv = act[r]; bi = j; }
     }
+    if (SPILL)
+      for (int j = kRegK + tid; j < K; j += kThreads)
+        if (better(spill[j], j, bv, bi)) { bv = spill[j]; bi = j; }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       const float ov = __shfl_down_sync(0xffffffffu, bv, off);
@@ -115,48 +151,57 @@ greedy_nms_kernel(const float* __restrict__ boxes,   // (B, K, 4)
     // 2. the picked box, broadcast from global memory
     const float px1 = bx[i * 4 + 0], py1 = bx[i * 4 + 1];
     const float px2 = bx[i * 4 + 2], py2 = bx[i * 4 + 3];
-    const float barea = __fmul_rn(__fsub_rn(px2, px1), __fsub_rn(py2, py1));
+    const float barea = area_rn(px1, py1, px2, py2);
 
     // 3. IoU row and suppression (kernels/nms.py:50-55)
 #pragma unroll
     for (int r = 0; r < ITEMS; ++r) {
-      const float iw = fmaxf(__fsub_rn(fminf(x2[r], px2), fmaxf(x1[r], px1)), 0.f);
-      const float ih = fmaxf(__fsub_rn(fminf(y2[r], py2), fmaxf(y1[r], py1)), 0.f);
-      const float inter = __fmul_rn(iw, ih);
-      const float den = __fadd_rn(__fsub_rn(__fadd_rn(area[r], barea), inter),
-                                  1e-12f);
-      const float iou = __fdiv_rn(inter, den);
+      const float iou = iou_rn(x1[r], y1[r], x2[r], y2[r], area[r], px1, py1,
+                               px2, py2, barea);
       const int j = r * kThreads + tid;
       if (j < K && (iou > iou_thres || j == i)) act[r] = -1.f;
     }
+    if (SPILL)
+      for (int j = kRegK + tid; j < K; j += kThreads) {
+        if (spill[j] == -1.f) continue;   // already out: stays -1
+        const float4 c = reinterpret_cast<const float4*>(bx)[j];
+        const float iou = iou_rn(c.x, c.y, c.z, c.w, area_rn(c.x, c.y, c.z, c.w),
+                                 px1, py1, px2, py2, barea);
+        if (iou > iou_thres || j == i) spill[j] = -1.f;
+      }
   }
 }
 
-template <int ITEMS>
-cudaError_t launch(const float* boxes, const float* scores, int* keep,
-                   bool* ok, int B, int K, int max_det, float iou_thres,
-                   cudaStream_t stream) {
-  greedy_nms_kernel<ITEMS><<<B, kThreads, 0, stream>>>(
-      boxes, scores, keep, ok, K, max_det, iou_thres);
+template <int ITEMS, bool SPILL = false>
+cudaError_t launch(const float* boxes, const float* scores, float* active,
+                   int* keep, bool* ok, int B, int K, int max_det,
+                   float iou_thres, cudaStream_t stream) {
+  greedy_nms_kernel<ITEMS, SPILL><<<B, kThreads, 0, stream>>>(
+      boxes, scores, active, keep, ok, K, max_det, iou_thres);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// active: a (B, K) fp32 scratch when K > 8192, else unused (may be null)
 extern "C" int icaf_greedy_nms(const void* boxes, const void* scores,
-                               void* keep, void* ok, int B, int K,
-                               int max_det, float iou_thres, void* stream) {
+                               void* active, void* keep, void* ok, int B,
+                               int K, int max_det, float iou_thres,
+                               void* stream) {
   if (B == 0) return cudaSuccess;
   auto b = static_cast<const float*>(boxes);
   auto s = static_cast<const float*>(scores);
+  auto a = static_cast<float*>(active);
   auto k = static_cast<int*>(keep);
   auto o = static_cast<bool*>(ok);
   auto st = static_cast<cudaStream_t>(stream);
   const int items = (K + kThreads - 1) / kThreads;
-  if (items <= 1) return launch<1>(b, s, k, o, B, K, max_det, iou_thres, st);
-  if (items <= 2) return launch<2>(b, s, k, o, B, K, max_det, iou_thres, st);
-  if (items <= 4) return launch<4>(b, s, k, o, B, K, max_det, iou_thres, st);
-  if (items <= 8) return launch<8>(b, s, k, o, B, K, max_det, iou_thres, st);
-  if (items <= 16) return launch<16>(b, s, k, o, B, K, max_det, iou_thres, st);
-  return cudaErrorInvalidValue;
+  if (items <= 1) return launch<1>(b, s, a, k, o, B, K, max_det, iou_thres, st);
+  if (items <= 2) return launch<2>(b, s, a, k, o, B, K, max_det, iou_thres, st);
+  if (items <= 4) return launch<4>(b, s, a, k, o, B, K, max_det, iou_thres, st);
+  if (items <= 8) return launch<8>(b, s, a, k, o, B, K, max_det, iou_thres, st);
+  if (items <= kRegItems)
+    return launch<kRegItems>(b, s, a, k, o, B, K, max_det, iou_thres, st);
+  if (a == nullptr) return cudaErrorInvalidValue;
+  return launch<kRegItems, true>(b, s, a, k, o, B, K, max_det, iou_thres, st);
 }

@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("dual_cross_attention.cu", "greedy_nms.cu")
+SOURCES = ("dual_cross_attention.cu", "greedy_nms.cu", "conv3x3_bn_silu.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,8 +41,13 @@ SIGNATURES = {
     # B, N, D, H, is_bf16, stream
     "icaf_dual_cross_attention": (_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P),
-    # boxes, scores, keep, ok, B, K, max_det, iou_thres, stream
-    "icaf_greedy_nms": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    # boxes, scores, active scratch (or null), keep, ok, B, K, max_det,
+    # iou_thres, stream
+    "icaf_greedy_nms": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    # x, w, packed weights scratch, scale, bias, out, B, H, W, is_bf16,
+    # nhwc, stream
+    "icaf_conv3x3_bn_silu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P),
 }
 
 

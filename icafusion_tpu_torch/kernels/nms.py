@@ -14,6 +14,10 @@ tensors and runs ``greedy_nms_reference``, the plain PyTorch loop, on CPU
 tensors only. Both compute the IoU in the order of kernels/nms.py:50-55
 without fused multiply-adds, so a box exactly at the threshold is
 suppressed alike on both.
+
+The kernel holds up to REGISTER_K candidates an image in registers; a larger
+pool keeps the rest of its active scores in a (B, K) float32 scratch that
+the wrapper allocates, so any K >= 1 runs, as in the JAX function.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from icafusion_tpu_torch.kernels import _build
 
 THREADS = 512          # csrc/greedy_nms.cu: block size
 MAX_ITEMS = 16         # candidates a thread holds in registers
-MAX_K = THREADS * MAX_ITEMS
+REGISTER_K = THREADS * MAX_ITEMS   # larger pools spill to a global scratch
 
 
 def greedy_nms_reference(boxes, scores, iou_thres: float, max_det: int):
@@ -64,9 +68,9 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
     if four != 4 or scores.shape != (B, K):
         raise ValueError(f"greedy_nms: boxes {tuple(boxes.shape)}, scores "
                          f"{tuple(scores.shape)}")
-    if K > MAX_K or K < 1 or max_det < 1:
-        raise ValueError(f"greedy_nms: K={K} outside [1, {MAX_K}] or "
-                         f"max_det={max_det} < 1")
+    if K < 1 or max_det < 1:
+        raise ValueError(f"greedy_nms: K={K} and max_det={max_det} must be "
+                         ">= 1")
     for t in (boxes, scores):
         if (t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != boxes.device):
@@ -74,9 +78,12 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
                              "float32 on one device")
     keep = torch.empty((B, max_det), dtype=torch.int32, device=boxes.device)
     ok = torch.empty((B, max_det), dtype=torch.bool, device=boxes.device)
+    active = (torch.empty((B, K), dtype=torch.float32, device=boxes.device)
+              if K > REGISTER_K else None)
     with torch.cuda.device(boxes.device):
         err = _build.library().icaf_greedy_nms(
-            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+            boxes.data_ptr(), scores.data_ptr(),
+            0 if active is None else active.data_ptr(), keep.data_ptr(),
             ok.data_ptr(), B, K, max_det, float(iou_thres),
             _build.stream_handle(boxes.device))
     _build.check(err, "greedy_nms")

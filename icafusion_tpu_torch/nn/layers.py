@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
@@ -27,7 +29,13 @@ def autopad(k, p=None):
 
 
 class Conv(nn.Module):
-    """Conv2d(bias=False) + BatchNorm + SiLU (reference common.py:48-60)."""
+    """Conv2d(bias=False) + BatchNorm + SiLU (reference common.py:48-60).
+
+    In eval mode a 3x3, stride 1, pad 1, ungrouped 64 -> 64 Conv with SiLU
+    runs as one fused kernel (kernels/packed_conv.py: conv3x3_bn_silu) with
+    the BatchNorm folded into a per-channel scale and bias; on the CPU that
+    call takes its plain version. The choice depends on the shape and the
+    mode only."""
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
                  act=True):
@@ -41,8 +49,18 @@ class Conv(nn.Module):
             self.act = nn.Identity()
         else:
             raise ValueError(f"unsupported activation spec: {act!r}")
+        self.fused = (c1 == c2 == 64 and g == 1 and act is True
+                      and self.conv.kernel_size == (3, 3)
+                      and self.conv.stride == (1, 1)
+                      and self.conv.padding == (1, 1))
 
     def forward(self, x):
+        if self.fused and not self.training:
+            bn = self.bn
+            scale = bn.weight.float() * torch.rsqrt(bn.running_var.float()
+                                                    + bn.eps)
+            bias = bn.bias.float() - bn.running_mean.float() * scale
+            return conv3x3_bn_silu(x, self.conv.weight, scale, bias)
         return self.act(self.bn(self.conv(x)))
 
 

@@ -14,7 +14,10 @@ import torch
 from icafusion_tpu_torch.kernels.cross_attention import (
     dual_cross_attention, dual_cross_attention_reference)
 from icafusion_tpu_torch.kernels.nms import greedy_nms, greedy_nms_reference
+from icafusion_tpu_torch.kernels.packed_conv import (conv3x3_bn_silu,
+                                                     conv3x3_bn_silu_reference)
 from icafusion_tpu_torch.models.assembler import build_model
+from icafusion_tpu_torch.nn.layers import Conv
 from icafusion_tpu_torch.models.zoo import tiny_icafusion_config
 from icafusion_tpu_torch.serve.engine import ServingEngine
 
@@ -84,10 +87,11 @@ def _nms_inputs(B, K, dev, seed=0):
     return f(boxes), f(scores)
 
 
-@pytest.mark.parametrize("K", [1, 300, 1024, 4096, 8192])
+@pytest.mark.parametrize("K", [1, 300, 1024, 4096, 8192, 8193, 20000])
 def test_nms_kernel_equals_reference(dev, K):
-    """Every register-tile size of the kernel (1 to 16 candidates a thread);
-    with K = 1 every image is padding."""
+    """Every register-tile size of the kernel (1 to 16 candidates a thread)
+    and the path past the registers (8193, 20000: a global scratch); with
+    K = 1 every image is padding."""
     boxes, scores = _nms_inputs(3, K, dev)
     before = greedy_nms.launches
     keep, ok = greedy_nms(boxes, scores, 0.45, 300)
@@ -132,3 +136,73 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     out = engines[dev].predict_arrays(rgb, ir)
     assert (dual_cross_attention.launches - a0, greedy_nms.launches - n0) == (3, 1)
     assert len(out) == 3 and all(o.shape[1] == 6 for o in out)
+
+
+def _conv_args(shape, dtype, layout, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda *s, std=1.0: torch.from_numpy(
+        rng.normal(0, std, s).astype(np.float32))
+    x = t(*shape).to(dev, dtype).contiguous(memory_format=layout)
+    return (x, t(64, 64, 3, 3, std=1 / 24).to(dev, dtype),
+            (1 + 0.3 * t(64)).to(dev), t(64, std=0.1).to(dev))
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 20, 20), (2, 64, 10, 13),
+                                   (1, 64, 7, 5), (1, 64, 33, 17)])
+@pytest.mark.parametrize("layout", [torch.channels_last,
+                                    torch.contiguous_format])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel_matches_reference(dev, shape, layout, dtype):
+    """Ragged tiles (16 x 16 pixels a tile) in both layouts. fp32: the JAX
+    Pallas test's 1e-4; bf16: both sum exact products in fp32 and round
+    once, so they differ by about one bf16 ulp."""
+    args = _conv_args(shape, dtype, layout, dev)
+    before = conv3x3_bn_silu.launches
+    got = conv3x3_bn_silu(*args)
+    assert conv3x3_bn_silu.launches == before + 1
+    want = conv3x3_bn_silu_reference(*args)
+    assert got.dtype == dtype and got.stride() == args[0].stride()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_conv_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, w, s, b = _conv_args((1, 64, 8, 8), torch.float32,
+                            torch.contiguous_format, dev)
+    with pytest.raises(TypeError):
+        conv3x3_bn_silu(x.half(), w.half(), s, b)
+    with pytest.raises(ValueError):
+        conv3x3_bn_silu(x, w.bfloat16(), s, b)
+    with pytest.raises(ValueError):
+        conv3x3_bn_silu(x[:, :, :, :7], w, s, b)        # not dense
+    with pytest.raises(ValueError):
+        conv3x3_bn_silu(x[:, :32], w[:32, :32], s, b)
+    with pytest.raises(ValueError):
+        conv3x3_bn_silu(x, w, s.double(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_module_launches_the_kernel(dev, dtype):
+    """An eval-mode Conv(64, 64, 3, 1) launches the kernel once a forward
+    and gives conv -> BatchNorm -> SiLU; Conv(64, 64, 3, 2) does not."""
+    gen = torch.Generator().manual_seed(0)
+    mod = Conv(64, 64, 3, 1)
+    with torch.no_grad():
+        mod.bn.running_mean.normal_(0, 0.1, generator=gen)
+        mod.bn.running_var.uniform_(0.5, 1.5, generator=gen)
+        mod.bn.weight.normal_(1, 0.1, generator=gen)
+    mod = mod.eval().to(dev)
+    mod.conv.weight.data = mod.conv.weight.data.to(dtype)
+    x = torch.randn(2, 64, 24, 40, generator=gen).to(dev, dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = conv3x3_bn_silu.launches
+    with torch.no_grad():
+        got = mod(x)
+        want = mod.act(mod.bn(mod.conv(x)))
+    assert conv3x3_bn_silu.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    strided = Conv(64, 64, 3, 2).eval().to(dev)
+    with torch.no_grad():
+        strided(x.float())
+    assert conv3x3_bn_silu.launches == before + 1

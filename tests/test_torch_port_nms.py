@@ -102,3 +102,30 @@ def test_boxes_match_jax():
         np.asarray(jax_boxes.box_iou(jnp.asarray(a.numpy()),
                                      jnp.asarray(b.numpy()))), rtol=1e-6)
     assert MAX_WH == jax_nms.MAX_WH
+
+
+def test_non_max_suppression_past_the_register_pool_matches_jax():
+    """top_k = 10000, above the 8192 candidates the card kernel holds in
+    registers: 12000 multi-label candidates at conf 0.001 fill the pool."""
+    pred = _predictions(1, 4000, 3, seed=3)
+    kw = dict(conf_thres=0.001, iou_thres=0.45, multi_label=True,
+              max_det=300, top_k=10000)
+    want = jax_nms.non_max_suppression(jnp.asarray(pred), use_pallas=False,
+                                       **kw)
+    got = non_max_suppression(torch.from_numpy(pred), **kw)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    (g,), (w,) = detections_to_numpy(got), jax_nms.detections_to_numpy(want)
+    assert len(g) == 300
+    np.testing.assert_array_equal(g[:, 5], w[:, 5])
+    np.testing.assert_allclose(g[:, :5], w[:, :5], rtol=1e-6, atol=1e-5)
+
+
+def test_greedy_nms_takes_a_pool_past_the_registers():
+    """The wrapper has no cap on K (the card kernel spills past
+    REGISTER_K); on the CPU it runs the plain loop."""
+    from icafusion_tpu_torch.kernels.nms import REGISTER_K, greedy_nms
+    boxes, scores = _candidates(2, REGISTER_K + 8, REGISTER_K)
+    keep, ok = greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                          0.45, 5)
+    assert keep.shape == ok.shape == (2, 5)
+    assert ok[0].all() and not ok[1].any()
