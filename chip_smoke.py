@@ -8,18 +8,19 @@ exit code is non-zero and the final line is never printed:
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions, and
    which of msgpack, yaml, cv2, PIL and torchvision import;
-1. the build of the CUDA kernels (one nvcc call) with the -Xptxas -v report;
+1. the build of the CUDA kernels (one nvcc per source, in parallel) with the
+   -Xptxas -v report;
 2. the dual cross-attention kernel against its plain PyTorch version on the
-   card, at the serving path's three shapes, float32 and bfloat16, timed
-   beside the plain version and a library yardstick;
+   card, at the serving path's three shapes and three ragged lengths,
+   float32 and bfloat16, timed beside the plain version and a library
+   yardstick, each by device time (torch.profiler) and by CUDA events;
 3. the greedy NMS kernel against its plain loop on the card (K = 1024,
    4096, and 8193 and 20000 past the register pool; ties and padding
    present): keep and ok must be equal;
 3b. the fused conv3x3 + BatchNorm + SiLU kernel (64 channels) against its
-   plain version, at the serving path's shape (4, 64, 160, 160) and three
+   plain version, at the serving path's shape (4, 64, 160, 160) and six
    ragged ones, float32 and bfloat16, channels_last (the serving path's
-   layout) and NCHW, timed beside the plain version and a library
-   yardstick;
+   layout) and NCHW, timed like phase 2;
 4. the slice: (a) a tiny model served on the card against the same engine
    on the CPU; (b) ServingEngine on yolov5l-Transfusion at 640, batch 4,
    bfloat16, random weights from torch.Generator().manual_seed(0), three
@@ -33,7 +34,8 @@ exit code is non-zero and the final line is never printed:
    reference stack's record in TRAINED_PARITY.json.
 
 Before the last line it prints one JSON object with each kernel's launches
-on the main path, error, times and bound; the last line is
+on the main path, error, device times (kernel, plain version and library
+yardstick, from torch.profiler) and bound; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device and
 outside a checkout of the repository.
 """
@@ -56,9 +58,13 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}   # dense
 ATTN_SHAPES = ((400, 256), (256, 512), (100, 1024))   # (N, D) at P3/P4/P5
+ATTN_RAGGED = ((1, 48), (63, 256), (65, 1024))   # not timed into the report
 HEADS, BATCH = 8, 4
 CONV_SHAPES = ((4, 64, 160, 160),    # the serving path: first C3 of a tower
-               (1, 64, 20, 20), (2, 64, 10, 13), (1, 64, 7, 5))
+               (1, 64, 20, 20), (2, 64, 10, 13), (1, 64, 7, 5),
+               (1, 64, 1, 1),       # the halo is all padding
+               (3, 64, 161, 33),    # ragged tiles in both directions
+               (1, 64, 8, 16))      # one tile, fewer tiles than SMs
 CONVS_PER_FORWARD = 6                # yolov5l: 3 bottlenecks x 2 towers
 MAP50_GATE = 0.003                   # ACCURACY.md: within 0.3 mAP@50 points
 
@@ -73,7 +79,10 @@ def done(t0: float):
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters launches, after a warm-up."""
+    """Mean time of fn() over iters back-to-back calls between two CUDA
+    events, after a warm-up. For a call whose kernels run in tens of
+    microseconds this times the host's launch work as well (device_ms
+    does not)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -84,6 +93,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over iters calls: the summed self device
+    time of every kernel (and memset or copy) the calls launched, from
+    torch.profiler (CUPTI), divided by iters. Host work between launches
+    does not count."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us:
+        raise RuntimeError("device_ms: the profiler recorded no device time")
+    return us / iters / 1e3
+
+
+def both_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device time, CUDA-event time) of fn() in ms, as above."""
+    return device_ms(fn, iters, warmup), cuda_ms(fn, iters, warmup)
 
 
 def attention_case(N: int, D: int, dtype, gen: torch.Generator):
@@ -205,11 +239,14 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
     if not busy:
         print("   profiler: no device events recorded")
         return
-    groups = {"dual_cross_attention": ("attention_kernel",
-                                       "projections_kernel"),
+    groups = {"dual_cross_attention": ("projections_wgmma_kernel",
+                                       "flash_attention_kernel",
+                                       "projections_f32_kernel",
+                                       "attention_f32_kernel"),
               "greedy_nms": ("greedy_nms_kernel",),
-              "conv3x3_bn_silu": ("conv3x3_bf16_kernel", "conv3x3_f32_kernel",
-                                  "pack_weights_kernel")}
+              "conv3x3_bn_silu": ("conv3x3_bf16_nhwc_kernel",
+                                  "conv3x3_bf16_nchw_kernel",
+                                  "conv3x3_f32_kernel", "pack_weights_kernel")}
     busy_ms = busy / n / 1e3
     print(f"   per request: device busy {busy_ms:.2f} ms; wall {wall_ms:.2f} ms"
           f" unprofiled -> idle share {1 - busy_ms / wall_ms:.3f} "
@@ -279,15 +316,18 @@ def main() -> int:
 
     t0 = phase("2 dual cross-attention vs plain (B=4, h=8)")
     # fp32: rtol 2e-4 / atol 2e-5, the tolerance of the JAX package's Pallas
-    # test (tests/test_pallas_kernels.py:52). bf16: 3e-2 / 3e-2, because the
-    # plain version rounds q/k/v and the probabilities to bf16 (the JAX
-    # einsum path, nn/fusion.py:237-266) while the kernel keeps them in fp32
-    # (as the Pallas kernel does): a few bf16 ulps (2^-8) of O(1) values.
+    # test (tests/test_pallas_kernels.py:52). bf16: 3e-2 / 3e-2. The kernel
+    # rounds q/k/v to bf16 where the plain version (the JAX einsum path,
+    # nn/fusion.py:237-266) does (the product, then its sum with the bias)
+    # and the probabilities before the P V product, but it sums in another
+    # order and rounds the probabilities before their normalisation, not
+    # after: a few bf16 ulps (2^-8) of O(1) values.
     tol = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
     main_path = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                  "library_ms": 0.0, "max_abs_err": 0.0, "bound_by": set()}
+    events = {"ms": 0.0, "library_ms": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for N, D in ATTN_SHAPES:
+        for N, D in ATTN_SHAPES + ATTN_RAGGED:
             vis, ir, ws, bs = attention_case(N, D, dtype, gen)
             out = dual_cross_attention(vis, ir, ws, bs, HEADS)
             ref = dual_cross_attention_reference(vis, ir, ws, bs, HEADS)
@@ -298,25 +338,35 @@ def main() -> int:
                 torch.testing.assert_close(o.float(), r.float(), rtol=rtol,
                                            atol=atol)
                 err = max(err, (o.float() - r.float()).abs().max().item())
-            ms = cuda_ms(lambda: dual_cross_attention(vis, ir, ws, bs, HEADS))
-            plain = cuda_ms(lambda: dual_cross_attention_reference(
+            if (N, D) not in ATTN_SHAPES:
+                print(f"   {str(dtype)[6:]:8s} N={N:3d} D={D:4d}: max_abs_err "
+                      f"{err:.3g} (ragged, not timed)")
+                continue
+            ms, ms_ev = both_ms(
+                lambda: dual_cross_attention(vis, ir, ws, bs, HEADS))
+            plain, plain_ev = both_ms(lambda: dual_cross_attention_reference(
                 vis, ir, ws, bs, HEADS))
-            lib = cuda_ms(lambda: attention_library(vis, ir, ws, bs))
+            lib, lib_ev = both_ms(lambda: attention_library(vis, ir, ws, bs))
             bnd, by = attention_bound(N, D, dtype)
             print(f"   {str(dtype)[6:]:8s} N={N:3d} D={D:4d}: max_abs_err "
-                  f"{err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                  f"library {lib:.4f} ms  bound {bnd:.5f} ms ({by})")
+                  f"{err:.3g}  device ms: kernel {ms:.4f} plain {plain:.4f} "
+                  f"library {lib:.4f}; events ms: kernel {ms_ev:.4f} plain "
+                  f"{plain_ev:.4f} library {lib_ev:.4f}; bound {bnd:.5f} ms "
+                  f"({by})")
             if dtype == torch.bfloat16:        # the engine's dtype
                 for k, v in (("ms", ms), ("plain_ms", plain),
                              ("bound_ms", bnd), ("library_ms", lib)):
                     main_path[k] += v
+                events["ms"] += ms_ev
+                events["library_ms"] += lib_ev
                 main_path["max_abs_err"] = max(main_path["max_abs_err"], err)
                 main_path["bound_by"].add(by)
     report["dual_cross_attention"] = main_path
-    print(f"   per forward (3 calls, bf16): kernel {main_path['ms']:.4f} ms, "
-          f"plain {main_path['plain_ms']:.4f} ms, library "
-          f"{main_path['library_ms']:.4f} ms, bound "
-          f"{main_path['bound_ms']:.5f} ms")
+    print(f"   per forward (3 calls, bf16), device time: kernel "
+          f"{main_path['ms']:.4f} ms, plain {main_path['plain_ms']:.4f} ms, "
+          f"library {main_path['library_ms']:.4f} ms, bound "
+          f"{main_path['bound_ms']:.5f} ms; events: kernel "
+          f"{events['ms']:.4f} ms, library {events['library_ms']:.4f} ms")
     done(t0)
 
     t0 = phase("3 greedy NMS vs plain loop (B=4, max_det=300)")
@@ -329,19 +379,23 @@ def main() -> int:
             bad = (keep != rkeep) | (ok != rok)
             raise AssertionError(f"NMS K={K}: {int(bad.sum())} of "
                                  f"{bad.numel()} slots differ")
-        ms = cuda_ms(lambda: greedy_nms(boxes, scores, 0.45, 300))
-        plain = cuda_ms(lambda: greedy_nms_reference(boxes, scores, 0.45, 300),
-                        iters=3, warmup=1)
+        ms, ms_ev = both_ms(lambda: greedy_nms(boxes, scores, 0.45, 300))
         # per step and candidate: 4 min/max, 2 sub, 2 clamp, 2 mul, 2 add,
         # 1 sub, 1 div, 1 compare = 15 operations
         bnd, by = bound(15 * BATCH * K * 300,
                         BATCH * K * 20 + BATCH * 300 * 5, torch.float32)
-        print(f"   K={K}: keep/ok equal ({int(ok.sum())} kept)  kernel "
-              f"{ms:.4f} ms  plain {plain:.3f} ms  bound {bnd:.5f} ms ({by})")
+        line = (f"   K={K}: keep/ok equal ({int(ok.sum())} kept)  device ms: "
+                f"kernel {ms:.4f}")
         if K == 1024:                       # the serving path's top_k
+            plain, plain_ev = both_ms(
+                lambda: greedy_nms_reference(boxes, scores, 0.45, 300),
+                iters=2, warmup=1)
+            line += f" plain {plain:.3f} (events {plain_ev:.3f})"
             report["greedy_nms"] = {"ms": ms, "plain_ms": plain,
                                     "bound_ms": bnd, "library_ms": None,
                                     "max_abs_err": 0.0, "bound_by": {by}}
+        print(f"{line}; events ms: kernel {ms_ev:.4f}; bound {bnd:.5f} ms "
+              f"({by})")
     done(t0)
 
     t0 = phase("3b conv3x3 + BN + SiLU (64 ch) vs plain")
@@ -365,14 +419,16 @@ def main() -> int:
         err = (out.float() - ref.float()).abs().max().item()
         w_f = (w.float() * sc[:, None, None, None]).to(dtype)
         b_f = bi.to(dtype)
-        ms = cuda_ms(lambda: conv3x3_bn_silu(x, w, sc, bi))
-        plain = cuda_ms(lambda: conv3x3_bn_silu_reference(x, w, sc, bi))
-        lib = cuda_ms(lambda: conv_library(x, w_f, b_f))
+        ms, ms_ev = both_ms(lambda: conv3x3_bn_silu(x, w, sc, bi))
+        plain, plain_ev = both_ms(
+            lambda: conv3x3_bn_silu_reference(x, w, sc, bi))
+        lib, lib_ev = both_ms(lambda: conv_library(x, w_f, b_f))
         bnd, by = conv_bound(shape, dtype)
         print(f"   {str(dtype)[6:]:8s} {lname} {str(shape):18s}: "
-              f"max_abs_err {err:.3g} (rtol {rtol:g}, atol {atol:g})  kernel "
-              f"{ms:.4f} ms  plain {plain:.4f} ms  library {lib:.4f} ms  "
-              f"bound {bnd:.5f} ms ({by})")
+              f"max_abs_err {err:.3g} (rtol {rtol:g}, atol {atol:g})  device "
+              f"ms: kernel {ms:.4f} plain {plain:.4f} library {lib:.4f}; "
+              f"events ms: kernel {ms_ev:.4f} plain {plain_ev:.4f} library "
+              f"{lib_ev:.4f}; bound {bnd:.5f} ms ({by})")
         if (dtype == torch.bfloat16 and shape == CONV_SHAPES[0]
                 and lname == "NHWC"):            # the serving path's
             report["conv3x3_bn_silu"] = {

@@ -11,44 +11,325 @@
 // with the eval-mode BatchNorm folded into (scale, bias) by the caller, for
 // any B, H, W >= 1. The TPU kernel packs two pixels into one 128-lane group
 // to fill its 128-wide matrix unit; Hopper has no 128-lane constraint, so
-// that packing is not carried over.
+// that packing is not carried over. Every path is an implicit GEMM:
+// M = B*H*W pixels, N = 64 output channels, K = 576 = 9 taps x 64 channels.
 //
-// It is an implicit GEMM: M = B*H*W pixels, N = 64 output channels,
-// K = 576 = 64 * 3 * 3, in two launches: a small one rearranges the weights
-// into the layout below in a global scratch; then each block copies the
-// whole 576 x 64 weight matrix into shared memory with 16-byte loads (once:
-// blocks are persistent and walk over the output tiles), stages one 16 x 16-pixel tile with its 1-pixel halo for all 64
-// input channels, masking the ragged edge and the zero pad itself (16-byte
-// loads of a pixel's channels in NHWC, one element a thread along w in
-// NCHW), and multiplies from shared memory:
-//   bf16  tensor cores, WMMA 16x16x16 with fp32 accumulation. Each of the 8
-//         warps computes two 16-pixel rows by 64 channels. Both operands
-//         are stored as contiguous 16 x 16 blocks (channel-minor input,
-//         k-minor weights), so every fragment pointer is 32-byte aligned.
-//         115,200 bytes of shared memory: two blocks per SM.
-//   fp32  CUDA-core FMAs, no TF32 (so it matches a plain version run with
-//         cudnn.allow_tf32 off). Each thread computes 8 pixels by 8
-//         channels. 230,400 bytes of shared memory: one block per SM.
-// The epilogue applies acc * scale + bias and SiLU in fp32 and stores in
-// the input dtype and layout (NHWC: a warp writes a pixel's 128 bytes).
-//
-// What bounds it on the H100: at the flagship shape x = (4, 64, 160, 160)
+// What bounds it on the H100: at the serving shape x = (4, 64, 160, 160)
 // bf16 the work is 7.55 GFLOP (7.6 us at 989 TFLOP/s) against 26.2 MB of
-// activations in and out plus 74 KB of weights (7.9 us at 3.35 TB/s), so
-// bytes and operations bound it about equally. This first version uses
-// mma.sync-class WMMA without TMA, wgmma or a pipelined staging of the next
-// tile, so it runs well above that bound; those are later work.
+// activations in and out plus 74 KB of weights (7.8 us at 3.35 TB/s): bytes
+// and operations bound it about equally, so the loads, the tensor cores and
+// the stores have to overlap.
+//
+// bf16 NHWC, the serving path (conv3x3_bf16_nhwc_kernel), one launch:
+//   - persistent and balanced: one block per SM, whose two warpgroups are
+//     independent workers, each with its own halo ring and barriers, so
+//     that one's epilogue overlaps the other's products. The workers walk
+//     the 4 x 16-pixel output tiles with a static stride (1600 tiles at
+//     the serving shape over 264 workers); worker w = warpgroup * blocks +
+//     block, so a last, partial round falls on distinct SMs;
+//   - TMA halo loads: a 4-D tensor map over x (C, W, H, B), box
+//     (64, 18, 6, 1), 128-byte swizzle. Each load starts at
+//     (0, w0 - 1, h0 - 1, b); the hardware zero-fills what lies outside x,
+//     which is the conv's zero pad and the ragged edge, so nothing is
+//     masked on the load side. A ring of 4 halo buffers per warpgroup with
+//     mbarriers keeps its next three tiles in flight while a tile computes;
+//   - wgmma m64n64k16, bf16 in, fp32 accumulation, A from registers: the
+//     warpgroup's 64 pixels are the tile, one 16-pixel row a warp. A is the
+//     halo window at tap (kh, kw), 16 pixels x 16 channels per warp, loaded
+//     by ldmatrix (a shifted window is no valid wgmma descriptor, but
+//     ldmatrix takes any 16-byte row address). Under the 128-byte swizzle
+//     chunk c of halo pixel p sits at p*128 + ((c ^ (p & 7)) * 16), which
+//     makes those reads free of bank conflicts for every shift. 36 k-steps
+//     per tile (9 taps x 4 channel groups), double-buffered A fragments;
+//   - B, the 576 x 64 weights, stays in shared memory for the whole kernel
+//     as 9 K-major 128-byte-swizzled 64 x 64 tiles (the wgmma descriptor's
+//     layout); each block writes it once from w's (co, ci, kh, kw) order, so
+//     there is no weight pre-pass launch;
+//   - epilogue from registers: scale * acc + bias and SiLU in fp32, one
+//     rounding to bf16, a quad shuffle so that each thread holds 16
+//     consecutive channels of a pixel, and 16-byte stores (a warp writes its
+//     16 pixels' 2 KB contiguously).
+//   185.6 KB of shared memory, one block per SM.
+//
+// bf16 NCHW and fp32 (either layout) keep the first design, which is not on
+// the serving path: a weight pre-pass launch rearranges w once per call;
+// persistent blocks copy it to shared memory, stage one 16 x 16-pixel tile
+// with its halo (masking the edge themselves), and multiply:
+//   bf16  WMMA 16x16x16 tensor-core fragments, fp32 accumulation; each of 8
+//         warps computes two 16-pixel rows by 64 channels.
+//   fp32  CUDA-core FMAs, no TF32 (so it matches a plain version run with
+//         cudnn.allow_tf32 off); each thread computes 8 pixels x 8 channels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace hopper;
 
 constexpr int kC = 64;                     // channels in and out
 constexpr int kTaps = 9;
+
+__device__ __forceinline__ float silu(float y) { return y / (1.f + expf(-y)); }
+
+// ===========================================================================
+// bf16 NHWC: TMA + wgmma, persistent
+// ===========================================================================
+
+namespace nhwc {
+
+constexpr int kTH = 4, kTW = 16;                   // output tile (pixels)
+constexpr int kHH = kTH + 2, kHW = kTW + 2;        // with its halo: 6 x 18
+constexpr int kHaloBytes = kHH * kHW * kC * 2;     // 13824
+constexpr int kStageBytes = 14 * 1024;             // swizzle atoms are 1 KB
+constexpr int kStages = 4;                         // per warpgroup
+constexpr int kTapBytes = kC * kC * 2;             // one 64 x 64 weight tile
+constexpr int kWBytes = kTaps * kTapBytes;         // 73728
+constexpr int kWarpgroups = 2;
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr size_t kSmem = 1024 /* alignment slack */ + kWBytes +
+                         kWarpgroups * kStages * kStageBytes + 2 * kC * 4 +
+                         kWarpgroups * kStages * 8;
+static_assert(kHaloBytes <= kStageBytes, "halo fits a stage");
+static_assert(kSmem <= 232448, "shared memory");
+
+struct Geometry {
+  int H, W, tiles_w, tiles_h, tiles;
+};
+
+__device__ __forceinline__ void tile_origin(int t, const Geometry& g, int* b,
+                                            int* h0, int* w0) {
+  *w0 = (t % g.tiles_w) * kTW;
+  t /= g.tiles_w;
+  *h0 = (t % g.tiles_h) * kTH;
+  *b = t / g.tiles_h;
+}
+
+__device__ __forceinline__ void load_halo(const CUtensorMap* xmap,
+                                          uint32_t dst, uint32_t bar, int t,
+                                          const Geometry& g) {
+  int b, h0, w0;
+  tile_origin(t, g, &b, &h0, &w0);
+  mbar_expect_tx(bar, kHaloBytes);
+  tma_load_4d(dst, xmap, bar, 0, w0 - 1, h0 - 1, b);
+}
+
+// The weights w (co, ci, kh, kw) into shared memory as 9 tap tiles
+// [co][ci] of 128-byte rows, 16-byte chunk c of row co at (c ^ (co & 7)).
+// A unit (co, 8 input channels) reads its 72 contiguous values (144 bytes)
+// and writes one 16-byte chunk per tap.
+__device__ __forceinline__ void stage_weights_sw128(const uint4* __restrict__ w,
+                                                    unsigned char* ws) {
+  for (int u = threadIdx.x; u < kC * 8; u += kThreads) {
+    const int co = u >> 3, c = u & 7;
+    uint32_t v[36];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const uint4 x = w[u * 9 + i];
+      v[4 * i] = x.x;
+      v[4 * i + 1] = x.y;
+      v[4 * i + 2] = x.z;
+      v[4 * i + 3] = x.w;
+    }
+    auto elem = [&](int e) { return (v[e >> 1] >> ((e & 1) * 16)) & 0xffffu; };
+#pragma unroll
+    for (int tap = 0; tap < kTaps; ++tap) {
+      uint32_t o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)   // input channels c*8 + 2k, c*8 + 2k + 1
+        o[k] = elem(2 * k * kTaps + tap) | (elem((2 * k + 1) * kTaps + tap) << 16);
+      *reinterpret_cast<uint4*>(ws + tap * kTapBytes + co * 128 +
+                                ((c ^ (co & 7)) << 4)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float silu_fast(float y) {
+  return __fdividef(y, 1.f + __expf(-y));   // -0 for y below about -88
+}
+
+// Two warpgroups per block, each an independent worker with its own ring of
+// halo buffers and barriers, so that one's epilogue overlaps the other's
+// products. Worker w = warpgroup * blocks + block takes tiles w,
+// w + workers, ..., so the tiles of a last, partial round land on distinct
+// SMs.
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_bf16_nhwc_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const uint4* __restrict__ w,     // (64, 64, 3, 3)
+                         const float* __restrict__ scale,  // (64,)
+                         const float* __restrict__ bias,   // (64,)
+                         __nv_bfloat16* __restrict__ out,  // (B, H, W, 64)
+                         Geometry g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* ws = smem_raw + (base - raw);
+  float* s_scale = reinterpret_cast<float*>(
+      ws + kWBytes + kWarpgroups * kStages * kStageBytes);
+  float* s_bias = s_scale + kC;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, row = warp & 3;   // the warp's output row
+  const bool leader = (tid & 127) == 0;
+  const uint32_t halo = base + kWBytes + wg * kStages * kStageBytes;
+  const uint32_t bars = smem_u32(s_bias + kC) + wg * kStages * 8;
+  const int workers = gridDim.x * kWarpgroups;
+  const int first = wg * gridDim.x + blockIdx.x;
+
+  if (leader) {
+    tma_prefetch_map(&xmap);
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+    mbar_init_fence();
+    for (int j = 0; j < kStages - 1; ++j) {   // the first tiles start loading
+      const int t = first + j * workers;
+      if (t < g.tiles) load_halo(&xmap, halo + j * kStageBytes, bars + 8 * j, t, g);
+    }
+  }
+  stage_weights_sw128(w, ws);
+  if (tid < kC) {
+    s_scale[tid] = scale[tid];
+    s_bias[tid] = bias[tid];
+  }
+  fence_proxy_async();   // the weights are read by wgmma (async proxy)
+  __syncthreads();
+
+  // ldmatrix: lane -> pixel m of the warp's 16 and 8-channel half of the
+  // 16-channel group.
+  const int m = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int khalf = lane >> 4;
+  const int qg = lane >> 2, qt = lane & 3;   // accumulator row / column pair
+
+  int j = 0;
+  for (int t = first; t < g.tiles; t += workers, ++j) {
+    const int s = j % kStages;
+    if (leader) {   // refill the buffer the warpgroup released last tile
+      const int tn = t + (kStages - 1) * workers;
+      const int sn = (j + kStages - 1) % kStages;
+      if (tn < g.tiles) load_halo(&xmap, halo + sn * kStageBytes, bars + 8 * sn, tn, g);
+    }
+    mbar_wait(bars + 8 * s, (j / kStages) & 1);
+    __syncwarp();   // ldmatrix and wgmma need the whole warp converged
+
+    const uint32_t buf = halo + s * kStageBytes;
+    auto load_a = [&](int tap, uint32_t (&a)[4][4]) {
+      const int p = (row + tap / 3) * kHW + m + tap % 3;
+      const uint32_t rowp = buf + p * 128;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        ldmatrix_x4(a[q], rowp + (((2 * q + khalf) ^ (p & 7)) << 4));
+    };
+    float acc[32];
+    uint32_t a[2][4][4];
+    load_a(0, a[0]);
+#pragma unroll
+    for (int tap = 0; tap < kTaps; ++tap) {
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wgmma_m64n64k16_rs(acc, a[tap & 1][q],
+                           desc_sw128(base + tap * kTapBytes + q * 32),
+                           (tap | q) != 0);
+      wgmma_commit();
+      if (tap + 1 < kTaps) {
+        wgmma_wait<1>();          // tap - 1 is done with the other A set
+        load_a(tap + 1, a[(tap + 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();
+    // the warpgroup's four warps are done reading buffer s
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+
+    // Epilogue. acc[4j + 2h + e]: pixel qg + 8h, channel 8j + 2qt + e.
+    int b, h0, w0;
+    tile_origin(t, g, &b, &h0, &w0);
+    const int h = h0 + row;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      uint32_t word[8];   // word[j]: channels 8j + 2qt, +1
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int co = 8 * jj + 2 * qt;
+        word[jj] = pack_bf16(
+            silu_fast(fmaf(acc[4 * jj + 2 * hf], s_scale[co], s_bias[co])),
+            silu_fast(fmaf(acc[4 * jj + 2 * hf + 1], s_scale[co + 1],
+                           s_bias[co + 1])));
+      }
+      // quad transpose: thread qt ends with channels 16 qt .. 16 qt + 15;
+      // r[k][i] comes from lane qt ^ k and holds its word[2 qt + i]
+      uint32_t r[4][2];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          r[k][i] = __shfl_xor_sync(
+              0xffffffffu,
+              pick4(word[i], word[2 + i], word[4 + i], word[6 + i], qt ^ k),
+              k);
+      const int wcol = w0 + qg + 8 * hf;
+      if (h < g.H && wcol < g.W) {
+        uint4* dst = reinterpret_cast<uint4*>(
+            out + (((size_t)b * g.H + h) * g.W + wcol) * kC + 16 * qt);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)   // channels 16 qt + 8 i .. + 7
+          dst[i] = make_uint4(pick4(r[0][i], r[1][i], r[2][i], r[3][i], qt),
+                              pick4(r[0][i], r[1][i], r[2][i], r[3][i], qt ^ 1),
+                              pick4(r[0][i], r[1][i], r[2][i], r[3][i], qt ^ 2),
+                              pick4(r[0][i], r[1][i], r[2][i], r[3][i], qt ^ 3));
+      }
+    }
+  }
+}
+
+bool g_opt_in[kMaxDevices];
+int g_sms[kMaxDevices];
+
+cudaError_t launch(const void* x, const void* w, const float* scale,
+                   const float* bias, void* out, int B, int H, int W,
+                   cudaStream_t st) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  err = opt_in_smem(conv3x3_bf16_nhwc_kernel, kSmem, g_opt_in);
+  if (err != cudaSuccess) return err;
+  if (g_sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return err;
+  }
+  CUtensorMap xmap;
+  const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kC * 2, (cuuint64_t)W * kC * 2,
+                                 (cuuint64_t)H * W * kC * 2};
+  const cuuint32_t box[4] = {kC, kHW, kHH, 1};
+  err = encode_bf16_map(&xmap, x, 4, dims, strides, box);
+  if (err != cudaSuccess) return err;
+  Geometry g;
+  g.H = H;
+  g.W = W;
+  g.tiles_w = (W + kTW - 1) / kTW;
+  g.tiles_h = (H + kTH - 1) / kTH;
+  g.tiles = B * g.tiles_w * g.tiles_h;
+  const int blocks = (g.tiles + kWarpgroups - 1) / kWarpgroups;
+  const int grid = blocks < g_sms[dev] ? blocks : g_sms[dev];
+  conv3x3_bf16_nhwc_kernel<<<grid, kThreads, kSmem, st>>>(
+      xmap, static_cast<const uint4*>(w), scale, bias,
+      static_cast<__nv_bfloat16*>(out), g);
+  return cudaGetLastError();
+}
+
+}  // namespace nhwc
+
+// ===========================================================================
+// bf16 NCHW and fp32: the first design (weight pre-pass, WMMA / CUDA cores)
+// ===========================================================================
+
 constexpr int kThreads = 256;              // 8 warps
 constexpr int kTH = 16, kTW = 16;          // output tile (pixels)
 constexpr int kHH = kTH + 2, kHW = kTW + 2;  // the tile with its halo
@@ -63,8 +344,6 @@ constexpr int kScrLd = 68;   // epilogue scratch row (floats), 16 per warp
 static_assert(8 * 16 * kScrLd * 4 <= kBfIn * 2, "scratch fits in the tile");
 // fp32: input [ci][kHH][kHW], weights [tap][ci][co]
 constexpr size_t kF32Smem = (size_t)(kC * kHalo + kTaps * kC * kC) * 4;
-
-__device__ __forceinline__ float silu(float y) { return y / (1.f + expf(-y)); }
 
 // element (b, c, h, w) of a (B, 64, H, W) tensor, NCHW or NHWC in memory
 template <bool NHWC>
@@ -192,14 +471,13 @@ __device__ __forceinline__ void stage_tile_nhwc(const T* __restrict__ x,
   }
 }
 
-template <bool NHWC>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3x3_bf16_kernel(const unsigned short* __restrict__ x,   // (B, 64, H, W)
-                    const unsigned short* __restrict__ w,   // packed
-                    const float* __restrict__ scale,        // (64,)
-                    const float* __restrict__ bias,         // (64,)
-                    __nv_bfloat16* __restrict__ out,        // (B, 64, H, W)
-                    int H, int W, int tiles_h, int tiles_w, int tiles) {
+conv3x3_bf16_nchw_kernel(const unsigned short* __restrict__ x,  // (B, 64, H, W)
+                         const unsigned short* __restrict__ w,  // packed
+                         const float* __restrict__ scale,       // (64,)
+                         const float* __restrict__ bias,        // (64,)
+                         __nv_bfloat16* __restrict__ out,       // (B, 64, H, W)
+                         int H, int W, int tiles_h, int tiles_w, int tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned short* xs = reinterpret_cast<unsigned short*>(smem);
   unsigned short* ws = xs + kBfIn;
@@ -209,15 +487,9 @@ conv3x3_bf16_kernel(const unsigned short* __restrict__ x,   // (B, 64, H, W)
 
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const Tile tl = tile_of(t, tiles_h, tiles_w);
-    auto dst = [](int ci, int r, int c) {
+    stage_tile_nchw(x, xs, tl, H, W, [](int ci, int r, int c) {
       return (((ci >> 4) * kHH + r) * kHW + c) * 16 + (ci & 15);
-    };
-    if constexpr (NHWC)   // 8 channels from a multiple of 8: 16 contiguous bytes
-      stage_tile_nhwc(x, tl, H, W, [&](uint4 v, int ci, int r, int c) {
-        *reinterpret_cast<uint4*>(xs + dst(ci, r, c)) = v;
-      });
-    else
-      stage_tile_nchw(x, xs, tl, H, W, dst);
+    });
     __syncthreads();   // the tile (and, the first time, the weights) staged
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
@@ -262,27 +534,13 @@ conv3x3_bf16_kernel(const unsigned short* __restrict__ x,   // (B, 64, H, W)
         wmma::store_matrix_sync(scr + nc * 16, acc[i][nc], kScrLd,
                                 wmma::mem_row_major);
       __syncwarp();
-      if (h < H) {
-        if constexpr (NHWC) {   // a lane stores channels 2 lane, 2 lane + 1 of a pixel
-          const int co = 2 * lane;
-          const float s0 = scale[co], s1 = scale[co + 1];
-          const float b0 = bias[co], b1 = bias[co + 1];
-          for (int m = 0; m < kTW && tl.w0 + m < W; ++m) {
-            const float2 a = *reinterpret_cast<const float2*>(
-                scr + m * kScrLd + co);
-            *reinterpret_cast<__nv_bfloat162*>(
-                out + at<true>(tl.b, co, h, tl.w0 + m, H, W)) =
-                __floats2bfloat162_rn(silu(fmaf(a.x, s0, b0)),
-                                      silu(fmaf(a.y, s1, b1)));
-          }
-        } else {      // lanes along w, then channels
+      if (h < H) {   // lanes along w, then channels
 #pragma unroll 4
-          for (int j = 0; j < 32; ++j) {
-            const int e = lane + 32 * j, m = e & 15, co = e >> 4;
-            if (tl.w0 + m < W)
-              out[at<false>(tl.b, co, h, tl.w0 + m, H, W)] = __float2bfloat16(
-                  silu(fmaf(scr[m * kScrLd + co], scale[co], bias[co])));
-          }
+        for (int j = 0; j < 32; ++j) {
+          const int e = lane + 32 * j, m = e & 15, co = e >> 4;
+          if (tl.w0 + m < W)
+            out[at<false>(tl.b, co, h, tl.w0 + m, H, W)] = __float2bfloat16(
+                silu(fmaf(scr[m * kScrLd + co], scale[co], bias[co])));
         }
       }
       __syncwarp();
@@ -371,8 +629,6 @@ conv3x3_f32_kernel(const float* __restrict__ x,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
 // Persistent grid: as many blocks as fit on the card at once, at most one
 // per tile. The shared-memory opt-in and the occupancy are looked up once
 // per kernel and device.
@@ -424,40 +680,37 @@ cudaError_t launch(Kernel kernel, size_t smem, int* cache, const void* x,
   return cudaGetLastError();
 }
 
-int g_grid[4][kMaxDevices];   // [is_bf16 * 2 + nhwc][device]
+int g_grid[3][kMaxDevices];   // [bf16 NCHW, fp32 NCHW, fp32 NHWC][device]
 
 }  // namespace
 
 // x, out: (B, 64, H, W), bf16 (is_bf16) or fp32, both dense in NCHW or both
 // in NHWC (channels_last, nhwc = 1), x 16-byte aligned; w: (64, 64, 3, 3)
-// in x's dtype; packed: a 16-byte aligned scratch of 64 * 64 * 9 elements
-// of x's dtype; scale, bias: (64,) fp32.
+// in x's dtype, 16-byte aligned; packed: a 16-byte aligned scratch of
+// 64 * 64 * 9 elements of x's dtype (not read for bf16 NHWC, may be null
+// there); scale, bias: (64,) fp32.
 extern "C" int icaf_conv3x3_bn_silu(const void* x, const void* w,
                                     void* packed, const void* scale,
                                     const void* bias, void* out, int B,
                                     int H, int W, int is_bf16, int nhwc,
                                     void* stream) {
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
-  const int tiles_h = (H + kTH - 1) / kTH, tiles_w = (W + kTW - 1) / kTW;
-  const int tiles = B * tiles_h * tiles_w;
   auto st = static_cast<cudaStream_t>(stream);
   auto s = static_cast<const float*>(scale);
   auto b = static_cast<const float*>(bias);
-  int* cache = g_grid[is_bf16 * 2 + nhwc];
+  if (is_bf16 && nhwc) return nhwc::launch(x, w, s, b, out, B, H, W, st);
+  const int tiles_h = (H + kTH - 1) / kTH, tiles_w = (W + kTW - 1) / kTW;
+  const int tiles = B * tiles_h * tiles_w;
   using u16 = unsigned short;
-  if (is_bf16 && nhwc)
-    return launch<u16, BfWeightIndex, __nv_bfloat16>(
-        conv3x3_bf16_kernel<true>, kBfSmem, cache, x, w, packed, s, b, out,
-        H, W, tiles_h, tiles_w, tiles, st);
   if (is_bf16)
     return launch<u16, BfWeightIndex, __nv_bfloat16>(
-        conv3x3_bf16_kernel<false>, kBfSmem, cache, x, w, packed, s, b, out,
+        conv3x3_bf16_nchw_kernel, kBfSmem, g_grid[0], x, w, packed, s, b, out,
         H, W, tiles_h, tiles_w, tiles, st);
   if (nhwc)
     return launch<float, F32WeightIndex, float>(
-        conv3x3_f32_kernel<true>, kF32Smem, cache, x, w, packed, s, b, out,
-        H, W, tiles_h, tiles_w, tiles, st);
+        conv3x3_f32_kernel<true>, kF32Smem, g_grid[2], x, w, packed, s, b,
+        out, H, W, tiles_h, tiles_w, tiles, st);
   return launch<float, F32WeightIndex, float>(
-      conv3x3_f32_kernel<false>, kF32Smem, cache, x, w, packed, s, b, out, H,
-      W, tiles_h, tiles_w, tiles, st);
+      conv3x3_f32_kernel<false>, kF32Smem, g_grid[1], x, w, packed, s, b, out,
+      H, W, tiles_h, tiles_w, tiles, st);
 }

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every source in ``csrc/`` into one shared library
-with a plain ``extern "C"`` interface (no PyTorch headers, so it builds in
-seconds), under ``build/`` at the repository root. The library is named by a
-hash of the sources and flags, so an edited source is rebuilt at its first
-use and an unchanged one is loaded as it is. ``ctypes`` binds it: every
-pointer and the stream pass as ``c_void_p``, and every entry returns
-``cudaGetLastError()``, which ``check`` turns into an exception.
+One ``nvcc -c`` per source in ``csrc/``, all run in parallel, and one link
+build one shared library with a plain ``extern "C"`` interface (no PyTorch
+headers, so it builds in seconds), under ``build/`` at the repository root.
+The library is named by a hash of the sources, headers and flags, so an
+edited source is rebuilt at its first use and an unchanged one is loaded as
+it is. ``ctypes`` binds it: every pointer and the stream pass as
+``c_void_p``, and every entry returns ``cudaGetLastError()``, which
+``check`` turns into an exception.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -29,9 +30,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dual_cross_attention.cu", "greedy_nms.cu", "conv3x3_bn_silu.cu")
+HEADERS = ("hopper.cuh",)   # included by the sources: part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,10 +70,11 @@ def _nvcc() -> str:
 
 
 def build() -> Build:
-    """Compile the sources unless a library with their hash exists."""
+    """Compile the sources unless a library with their hash exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     srcs = [CSRC / s for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in (*srcs, *(CSRC / x for x in HEADERS)):
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libicafusion_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
@@ -78,14 +82,29 @@ def build() -> Build:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # unique per process and thread; os.replace publishes it atomically
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, srcs)], capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[1] for p in procs]
+    try:
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{log}")
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return Build(out, time.perf_counter() - t0, proc.stderr)
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return Build(out, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.cache

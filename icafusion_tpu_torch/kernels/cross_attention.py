@@ -10,7 +10,9 @@ projections q/k/v of both modalities and both attention directions
 
 and returns the concatenated heads (B, N, D) of each, before the output
 projections. ``dual_cross_attention`` launches the CUDA kernel of
-``csrc/dual_cross_attention.cu`` on CUDA tensors and runs
+``csrc/dual_cross_attention.cu`` on CUDA tensors (in bf16: the six
+projections as one wgmma GEMM fed by TMA, then a flash-attention core on
+mma.sync tensor cores; in fp32: CUDA cores, no TF32) and runs
 ``dual_cross_attention_reference``, the plain PyTorch version, on CPU
 tensors only.
 
@@ -67,7 +69,8 @@ def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
     """Both attention directions, projections included. weights: six
     (D, D) tensors in the order of NAMES, in vis's dtype; biases: six (D,).
     On CUDA: float32 or bfloat16 tokens, float32 accumulation and softmax,
-    output in the token dtype."""
+    output in the token dtype; bfloat16 rounds q/k/v and the probabilities
+    to bfloat16 before their products, as the plain version does."""
     if vis.device.type == "cpu":
         return dual_cross_attention_reference(vis, ir, weights, biases,
                                               num_heads)
@@ -94,8 +97,19 @@ def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
                              f"{w.dtype}, want ({D}, {D}) {dt}")
         if bias.shape != (D,) or bias.dtype != torch.float32:
             raise ValueError("dual_cross_attention: biases are (D,) float32")
-    qkv = torch.empty((6, B, num_heads, N, D // num_heads),
-                      device=vis.device, dtype=torch.float32)
+    dk = D // num_heads
+    if dt == torch.bfloat16:
+        # TMA reads rows of D values: 16-byte aligned rows and bases
+        if D % 8 or any(t.data_ptr() % 16 for t in (vis, ir, *weights)):
+            raise ValueError("dual_cross_attention: bfloat16 needs D % 8 == 0 "
+                             "and 16-byte aligned tokens and weights")
+        # q/k/v rows padded to the flash kernel's width, the padding zero
+        dkp = next(p for p in (16, 32, 64, 128) if p >= dk)
+        alloc = torch.empty if dkp == dk else torch.zeros
+        qkv = alloc((6, B, num_heads, N, dkp), device=vis.device, dtype=dt)
+    else:
+        qkv = torch.empty((6, B, num_heads, N, dk), device=vis.device,
+                          dtype=torch.float32)
     out_vis = torch.empty_like(vis)
     out_ir = torch.empty_like(vis)
     w_ptrs = (ctypes.c_void_p * 6)(*[w.data_ptr() for w in weights])

@@ -4,8 +4,10 @@ Replaces the Pallas TPU kernel ``icafusion_tpu/kernels/packed_conv.py:
 packed_conv3x3_silu`` (body ``_kernel``, weights from ``pack_weights``),
 which computes ``SiLU(conv3x3_same(x, w) * scale + bias)`` for 64 -> 64
 channels. The TPU kernel packs pixel pairs into its 128 lanes; the CUDA
-kernel of ``csrc/conv3x3_bn_silu.cu`` is a plain implicit GEMM instead
-(tensor cores in bf16, CUDA cores in fp32).
+kernel of ``csrc/conv3x3_bn_silu.cu`` is an implicit GEMM instead: in bf16
+channels_last (the serving path) a persistent kernel fed by TMA halo loads
+that multiplies with wgmma; in bf16 NCHW WMMA tensor-core fragments; in
+fp32 CUDA cores.
 
 ``conv3x3_bn_silu`` launches that kernel on CUDA tensors and runs
 ``conv3x3_bn_silu_reference``, the plain PyTorch version, on CPU tensors
@@ -59,18 +61,24 @@ def conv3x3_bn_silu(x, w, scale, bias):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("conv3x3_bn_silu: w, scale and bias must be "
                              "contiguous and on x's device")
-    nhwc = not x.is_contiguous()
-    if nhwc and not x.is_contiguous(memory_format=torch.channels_last):
+    # a tensor dense in both layouts (H = W = 1) takes the channels_last path
+    nhwc = x.is_contiguous(memory_format=torch.channels_last)
+    if not nhwc and not x.is_contiguous():
         raise ValueError("conv3x3_bn_silu: x must be contiguous in NCHW or "
                          "in channels_last")
-    if x.data_ptr() % 16:
-        raise ValueError("conv3x3_bn_silu: x must be 16-byte aligned")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("conv3x3_bn_silu: x and w must be 16-byte aligned")
     B, _, H, W = x.shape
     out = torch.empty_like(x)   # x's layout (preserve_format)
-    packed = torch.empty(w.numel(), dtype=w.dtype, device=x.device)
+    bf16_nhwc = nhwc and x.dtype == torch.bfloat16
+    # the bf16 channels_last kernel rearranges w itself; the others take a
+    # pre-pass into this scratch
+    packed = None if bf16_nhwc else torch.empty(w.numel(), dtype=w.dtype,
+                                                device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().icaf_conv3x3_bn_silu(
-            x.data_ptr(), w.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            x.data_ptr(), w.data_ptr(),
+            None if packed is None else packed.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, H, W,
             int(x.dtype == torch.bfloat16),
             int(nhwc), _build.stream_handle(x.device))

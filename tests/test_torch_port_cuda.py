@@ -43,21 +43,41 @@ def _attention_args(B, N, D, dtype, dev, seed=0):
             [t(D, std=0.1).to(dev) for _ in range(6)])
 
 
+ATTENTION_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
+
+
 @pytest.mark.parametrize("N,D", [(400, 256), (256, 512), (100, 1024), (7, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_reference(dev, N, D, dtype):
     """The serving path's three shapes and a ragged one (dk = 6). fp32: the
-    JAX Pallas test's tolerance. bf16: the plain version rounds q/k/v and the
-    probabilities to bf16 (the JAX einsum path); the kernel keeps them in
-    fp32 as the Pallas kernel does."""
+    JAX Pallas test's tolerance. bf16: the kernel rounds q/k/v and the
+    probabilities to bf16 before their products, as the plain version (the
+    JAX einsum path) does, but sums in another order and rounds the
+    probabilities before their normalisation: a few bf16 ulps."""
     args = _attention_args(2, N, D, dtype, dev)
     before = dual_cross_attention.launches
     got = dual_cross_attention(*args)
     assert dual_cross_attention.launches == before + 1
     want = dual_cross_attention_reference(*args)
-    rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (3e-2, 3e-2)
+    rtol, atol = ATTENTION_TOL[dtype]
     for g, w in zip(got, want):
         assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("N", [1, 63, 65])
+@pytest.mark.parametrize("D", [48, 256, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_at_ragged_lengths(dev, N, D, dtype):
+    """One key, and one short of and one past a 64-token tile (the query and
+    key tiles of both designs), at dk = 6, 32, 64 and 128; the tolerances of
+    the test above."""
+    args = _attention_args(3, N, D, dtype, dev, seed=N + D)
+    got = dual_cross_attention(*args)
+    want = dual_cross_attention_reference(*args)
+    rtol, atol = ATTENTION_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (3, N, D)
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
 
 
@@ -147,15 +167,20 @@ def _conv_args(shape, dtype, layout, dev, seed=0):
             (1 + 0.3 * t(64)).to(dev), t(64, std=0.1).to(dev))
 
 
-@pytest.mark.parametrize("shape", [(1, 64, 20, 20), (2, 64, 10, 13),
-                                   (1, 64, 7, 5), (1, 64, 33, 17)])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 20, 20), (2, 64, 10, 13), (1, 64, 7, 5), (1, 64, 33, 17),
+    (1, 64, 1, 1),        # the halo is all padding
+    (3, 64, 161, 33),     # ragged tiles in both directions
+    (1, 64, 8, 16),       # one tile, fewer tiles than SMs
+    (4, 64, 160, 160)])   # the serving shape: several tiles per SM
 @pytest.mark.parametrize("layout", [torch.channels_last,
                                     torch.contiguous_format])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_kernel_matches_reference(dev, shape, layout, dtype):
-    """Ragged tiles (16 x 16 pixels a tile) in both layouts. fp32: the JAX
-    Pallas test's 1e-4; bf16: both sum exact products in fp32 and round
-    once, so they differ by about one bf16 ulp."""
+    """Ragged tiles in both layouts (4 x 16-pixel tiles in bf16
+    channels_last, 16 x 16 otherwise). fp32: the JAX Pallas test's 1e-4;
+    bf16: both sum exact products in fp32 and round once, so they differ by
+    about one bf16 ulp."""
     args = _conv_args(shape, dtype, layout, dev)
     before = conv3x3_bn_silu.launches
     got = conv3x3_bn_silu(*args)
