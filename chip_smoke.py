@@ -14,9 +14,11 @@ exit code is non-zero and the final line is never printed:
    card, at the serving path's three shapes and three ragged lengths,
    float32 and bfloat16, timed beside the plain version and a library
    yardstick, each by device time (torch.profiler) and by CUDA events;
-3. the greedy NMS kernel against its plain loop on the card (K = 1024,
-   4096, and 8193 and 20000 past the register pool; ties and padding
-   present): keep and ok must be equal;
+3. the greedy NMS kernels (suppression bitmask, then the walk) against the
+   plain loop on the card, B = 4, at K = 1, 1024 (the serving pool), 4096,
+   8193 and 20000, at B = 8, K = 8192 (the Evaluator's shape), and with
+   padding of 0, -0.5 and -2 in place of -1; ties present: keep and ok must
+   be equal. Each case prints its time and kept count;
 3b. the fused conv3x3 + BatchNorm + SiLU kernel (64 channels) against its
    plain version, at the serving path's shape (4, 64, 160, 160) and six
    ragged ones, float32 and bfloat16, channels_last (the serving path's
@@ -95,24 +97,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters calls: the summed self device
-    time of every kernel (and memset or copy) the calls launched, from
-    torch.profiler (CUPTI), divided by iters. Host work between launches
-    does not count."""
+def device_times(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Mean device time of fn() in ms over iters calls, by kernel name: the
+    summed self device time of every kernel (and memset or copy) the calls
+    launched, from torch.profiler (CUPTI), divided by iters. Host work
+    between launches does not count. A window in which the profiler
+    recorded no device event is profiled again, up to twice."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us:
-        raise RuntimeError("device_ms: the profiler recorded no device time")
-    return us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+        if sum(us.values()):
+            return {k: v / iters / 1e3 for k, v in us.items()}
+        print("   (the profiler recorded no device time: again)")
+    raise RuntimeError("device_times: the profiler recorded no device time")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, all its kernels summed."""
+    return sum(device_times(fn, iters, warmup).values())
 
 
 def both_ms(fn, iters: int = 20, warmup: int = 3):
@@ -197,10 +207,10 @@ def matched(a: np.ndarray, r: np.ndarray) -> float:
     return float(((iou > 0.5) & same).any(1).mean())
 
 
-def nms_case(B: int, K: int, gen: torch.Generator):
+def nms_case(B: int, K: int, gen: torch.Generator, pad: float = -1.0):
     """Clustered boxes (so suppression happens), scores descending with
-    runs of equal values (ties), a padded tail, and one image that is all
-    padding (every step exhausted)."""
+    runs of equal values (ties), a tail of `pad`, and one image that is all
+    `pad` (no live candidate when pad <= -1)."""
     n = (K + 7) // 8
     ctr = torch.rand(B, n, 1, 2, generator=gen) * 600
     xy = (ctr + torch.randn(B, n, 8, 2, generator=gen) * 6).view(B, -1, 2)
@@ -211,8 +221,8 @@ def nms_case(B: int, K: int, gen: torch.Generator):
     s = torch.rand(B, K, generator=gen)
     s = torch.round(s * 64) / 64                      # many exact ties
     s = torch.sort(s, dim=1, descending=True, stable=True).values
-    s[:, int(K * 0.8):] = -1.0
-    s[B - 1] = -1.0
+    s[:, int(K * 0.8):] = pad
+    s[B - 1] = pad
     return boxes.cuda().contiguous(), s.cuda().contiguous()
 
 
@@ -243,7 +253,7 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
                                        "flash_attention_kernel",
                                        "projections_f32_kernel",
                                        "attention_f32_kernel"),
-              "greedy_nms": ("greedy_nms_kernel",),
+              "greedy_nms": ("nms_mask_kernel", "nms_scan_kernel"),
               "conv3x3_bn_silu": ("conv3x3_bf16_nhwc_kernel",
                                   "conv3x3_bf16_nchw_kernel",
                                   "conv3x3_f32_kernel", "pack_weights_kernel")}
@@ -369,24 +379,35 @@ def main() -> int:
           f"{events['ms']:.4f} ms, library {events['library_ms']:.4f} ms")
     done(t0)
 
-    t0 = phase("3 greedy NMS vs plain loop (B=4, max_det=300)")
-    for K in (1024, 4096, 8193, 20000):
-        boxes, scores = nms_case(BATCH, K, gen)
+    t0 = phase("3 greedy NMS vs plain loop (max_det=300)")
+    for B, K, pad in ((BATCH, 1, -1.0), (BATCH, 1024, -1.0),
+                      (BATCH, 4096, -1.0), (8, 8192, -1.0),
+                      (BATCH, 8193, -1.0), (BATCH, 20000, -1.0),
+                      (BATCH, 1024, 0.0), (BATCH, 1024, -0.5),
+                      (BATCH, 1024, -2.0), (BATCH, 8193, -0.5)):
+        boxes, scores = nms_case(B, K, gen, pad)
         keep, ok = greedy_nms(boxes, scores, 0.45, 300)
         rkeep, rok = greedy_nms_reference(boxes, scores, 0.45, 300)
         torch.cuda.synchronize()
         if not (torch.equal(keep, rkeep) and torch.equal(ok, rok)):
             bad = (keep != rkeep) | (ok != rok)
-            raise AssertionError(f"NMS K={K}: {int(bad.sum())} of "
-                                 f"{bad.numel()} slots differ")
-        ms, ms_ev = both_ms(lambda: greedy_nms(boxes, scores, 0.45, 300))
-        # per step and candidate: 4 min/max, 2 sub, 2 clamp, 2 mul, 2 add,
-        # 1 sub, 1 div, 1 compare = 15 operations
-        bnd, by = bound(15 * BATCH * K * 300,
-                        BATCH * K * 20 + BATCH * 300 * 5, torch.float32)
-        line = (f"   K={K}: keep/ok equal ({int(ok.sum())} kept)  device ms: "
-                f"kernel {ms:.4f}")
-        if K == 1024:                       # the serving path's top_k
+            raise AssertionError(f"NMS B={B} K={K} pad={pad}: "
+                                 f"{int(bad.sum())} of {bad.numel()} slots "
+                                 f"differ")
+        by_kernel = device_times(lambda: greedy_nms(boxes, scores, 0.45, 300))
+        ms = sum(by_kernel.values())
+        ms_ev = cuda_ms(lambda: greedy_nms(boxes, scores, 0.45, 300))
+        split = {k: sum(v for n, v in by_kernel.items() if k in n)
+                 for k in ("nms_mask_kernel", "nms_scan_kernel")}
+        # per step and candidate of the argmax loop: 4 min/max, 2 sub,
+        # 2 clamp, 2 mul, 2 add, 1 sub, 1 div, 1 compare = 15 operations
+        bnd, by = bound(15 * B * K * 300, B * K * 20 + B * 300 * 5,
+                        torch.float32)
+        line = (f"   B={B} K={K:5d} pad={pad:4.1f}: keep/ok equal "
+                f"({int(ok.sum())} kept)  device ms: kernels {ms:.4f} "
+                f"(mask {split['nms_mask_kernel']:.4f}, walk "
+                f"{split['nms_scan_kernel']:.4f})")
+        if (B, K, pad) == (BATCH, 1024, -1.0):   # the serving path's top_k
             plain, plain_ev = both_ms(
                 lambda: greedy_nms_reference(boxes, scores, 0.45, 300),
                 iters=2, warmup=1)
@@ -394,7 +415,7 @@ def main() -> int:
             report["greedy_nms"] = {"ms": ms, "plain_ms": plain,
                                     "bound_ms": bnd, "library_ms": None,
                                     "max_abs_err": 0.0, "bound_by": {by}}
-        print(f"{line}; events ms: kernel {ms_ev:.4f}; bound {bnd:.5f} ms "
+        print(f"{line}; events ms: kernels {ms_ev:.4f}; bound {bnd:.5f} ms "
               f"({by})")
     done(t0)
 

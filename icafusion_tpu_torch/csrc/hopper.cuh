@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels, as inline
-// PTX: mbarriers, TMA tensor loads, wgmma with its shared-memory
+// PTX: mbarriers, bulk and TMA tensor loads, wgmma with its shared-memory
 // descriptors, ldmatrix and mma.sync, and the host-side encoding of a TMA
 // tensor map. The tensor-map encoder is reached through
 // cudaGetDriverEntryPointByVersion, so the library needs no -lcuda.
@@ -40,16 +40,22 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                    bar), "r"(bytes) : "memory");
 }
 
+// Whether the barrier's phase with the given parity has completed, after
+// waiting for it a while (a time the hardware chooses).
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
 // Spin until the barrier's phase with the given parity has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
+  while (!mbar_try_wait(bar, parity)) {
+  }
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later
@@ -82,6 +88,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared, completing on `bar` (announce
+// them with mbar_expect_tx); both addresses 16-byte aligned, bytes a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -44,8 +44,8 @@ SIGNATURES = {
     # B, N, D, H, is_bf16, stream
     "icaf_dual_cross_attention": (_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P),
-    # boxes, scores, active scratch (or null), keep, ok, B, K, max_det,
-    # iou_thres, stream
+    # boxes, scores, mask scratch (B, K, nms.mask_words(K)) int64, keep, ok,
+    # B, K, max_det, iou_thres, stream
     "icaf_greedy_nms": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
     # x, w, packed weights scratch, scale, bias, out, B, H, W, is_bf16,
     # nhwc, stream

@@ -1,23 +1,26 @@
-"""Greedy NMS selection loop: one CUDA block per image.
+"""Greedy NMS on the card: a suppression bitmask, then a walk over it.
 
 Replaces the Pallas TPU kernel ``icafusion_tpu/kernels/nms.py:
 pallas_greedy_nms`` (body ``_nms_kernel``). Input per image: K candidate
-boxes (xyxy, class offset applied) with scores in descending order, padding
-at -1. ``max_det`` steps each pick the highest active score (ties to the
-lowest index, all -1 picks index 0, as ``jnp.argmax`` does) and suppress the
-pick and every box whose IoU with it exceeds the threshold. Returns the
-picked indices (B, max_det) int32 and ``ok`` (B, max_det) bool, true where
-the picked score was above 0.
+boxes (xyxy, class offset applied) and their scores. ``max_det`` steps each
+pick the highest active score (ties to the lowest index; all -1 picks index
+0, as ``jnp.argmax`` does) and suppress the pick and every box whose IoU
+with it exceeds the threshold. Returns the picked indices (B, max_det) int32
+and ``ok`` (B, max_det) bool, true where the picked score was above 0.
 
-``greedy_nms`` launches the CUDA kernel of ``csrc/greedy_nms.cu`` on CUDA
-tensors and runs ``greedy_nms_reference``, the plain PyTorch loop, on CPU
-tensors only. Both compute the IoU in the order of kernels/nms.py:50-55
-without fused multiply-adds, so a box exactly at the threshold is
-suppressed alike on both.
+``greedy_nms`` runs ``greedy_nms_reference``, the plain PyTorch loop, on CPU
+tensors only. On CUDA tensors it launches the two kernels of
+``csrc/greedy_nms.cu``: the first builds, across the card, a bitmask whose
+bit j of row i is set iff j > i and IoU(i, j) > iou_thres; the second, one
+block per image, walks the mask in index order in one warp. Both sides
+compute the IoU in the order of kernels/nms.py:50-55 without fused
+multiply-adds, so a box exactly at the threshold falls alike on both.
 
-The kernel holds up to REGISTER_K candidates an image in registers; a larger
-pool keeps the rest of its active scores in a (B, K) float32 scratch that
-the wrapper allocates, so any K >= 1 runs, as in the JAX function.
+The walk relies on the contract of the JAX kernel and of
+``ops/nms.py:non_max_suppression``, which sorts before it calls: scores are
+finite and non-increasing along K. Under it, keep and ok equal the plain
+loop's index for index, for any K >= 1 and max_det >= 1. On unsorted scores
+the kernels do not reproduce the argmax loop.
 """
 
 from __future__ import annotations
@@ -26,9 +29,13 @@ import torch
 
 from icafusion_tpu_torch.kernels import _build
 
-THREADS = 512          # csrc/greedy_nms.cu: block size
-MAX_ITEMS = 16         # candidates a thread holds in registers
-REGISTER_K = THREADS * MAX_ITEMS   # larger pools spill to a global scratch
+
+def mask_words(K: int) -> int:
+    """64-bit words in a row of the suppression mask: ceil(K / 64), rounded
+    up to even so that every row starts on 16 bytes, as the kernel's bulk
+    copies need (csrc/greedy_nms.cu: Wp)."""
+    words = -(-K // 64)
+    return words + (words & 1)
 
 
 def greedy_nms_reference(boxes, scores, iou_thres: float, max_det: int):
@@ -58,8 +65,10 @@ def greedy_nms_reference(boxes, scores, iou_thres: float, max_det: int):
 
 
 def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
-    """boxes: (B, K, 4) float32; scores: (B, K) float32, descending with
-    padding <= 0. Returns (keep (B, max_det) int32, ok (B, max_det) bool)."""
+    """boxes: (B, K, 4) float32; scores: (B, K) float32, finite and
+    non-increasing along K, padding <= 0. Returns (keep (B, max_det) int32,
+    ok (B, max_det) bool). One call counts one launch, though the card runs
+    two kernels."""
     if boxes.device.type == "cpu":
         return greedy_nms_reference(boxes, scores, iou_thres, max_det)
     if boxes.device.type != "cuda":
@@ -78,13 +87,13 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
                              "float32 on one device")
     keep = torch.empty((B, max_det), dtype=torch.int32, device=boxes.device)
     ok = torch.empty((B, max_det), dtype=torch.bool, device=boxes.device)
-    active = (torch.empty((B, K), dtype=torch.float32, device=boxes.device)
-              if K > REGISTER_K else None)
+    # bit j of row i of image b: word j // 64 of mask[b, i]
+    mask = torch.empty((B, K, mask_words(K)), dtype=torch.int64,
+                       device=boxes.device)
     with torch.cuda.device(boxes.device):
         err = _build.library().icaf_greedy_nms(
-            boxes.data_ptr(), scores.data_ptr(),
-            0 if active is None else active.data_ptr(), keep.data_ptr(),
-            ok.data_ptr(), B, K, max_det, float(iou_thres),
+            boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(),
+            keep.data_ptr(), ok.data_ptr(), B, K, max_det, float(iou_thres),
             _build.stream_handle(boxes.device))
     _build.check(err, "greedy_nms")
     greedy_nms.launches += 1

@@ -91,34 +91,88 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
         dual_cross_attention(vis, ir, ws, [b.bfloat16() for b in bs])
 
 
-def _nms_inputs(B, K, dev, seed=0):
+def _nms_inputs(B, K, dev, seed=0, pad=-1.0, degenerate=False):
     """Clustered class-offset boxes, descending scores with exact ties,
-    padding after 80 % and a last image that is all padding."""
+    `pad` after 80 % and in the whole last image; degenerate adds zero-area
+    boxes and boxes with x2 < x1."""
     rng = np.random.default_rng(seed)
     ctr = np.repeat(rng.uniform(0, 600, (B, (K + 7) // 8, 2)), 8, axis=1)
     xy = ctr[:, :K] + rng.normal(0, 6, (B, K, 2))
     wh = rng.uniform(20, 80, (B, K, 2))
+    if degenerate:
+        wh[:, ::5] = 0.0
+        wh[:, 1::7, 0] *= -1.0
     boxes = np.concatenate([xy, xy + wh], -1)
     boxes += 4096.0 * rng.integers(0, 3, (B, K, 1))
     scores = -np.sort(-np.round(rng.uniform(0, 1, (B, K)) * 64) / 64, axis=1)
-    scores[:, int(0.8 * K):] = -1.0
-    scores[-1] = -1.0
+    scores[:, int(0.8 * K):] = pad
+    scores[-1] = pad
     f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
     return f(boxes), f(scores)
 
 
-@pytest.mark.parametrize("K", [1, 300, 1024, 4096, 8192, 8193, 20000])
-def test_nms_kernel_equals_reference(dev, K):
-    """Every register-tile size of the kernel (1 to 16 candidates a thread)
-    and the path past the registers (8193, 20000: a global scratch); with
-    K = 1 every image is padding."""
-    boxes, scores = _nms_inputs(3, K, dev)
+def _nms_equal(boxes, scores, iou_thres, max_det):
     before = greedy_nms.launches
-    keep, ok = greedy_nms(boxes, scores, 0.45, 300)
+    keep, ok = greedy_nms(boxes, scores, iou_thres, max_det)
     assert greedy_nms.launches == before + 1
-    rkeep, rok = greedy_nms_reference(boxes, scores, 0.45, 300)
+    rkeep, rok = greedy_nms_reference(boxes, scores, iou_thres, max_det)
     assert torch.equal(ok, rok)
     assert torch.equal(keep, rkeep)
+    return keep, ok
+
+
+@pytest.mark.parametrize("K", [1, 63, 65, 300, 1023, 1024, 4096, 8192, 8193,
+                               20000])
+def test_nms_kernel_equals_reference(dev, K):
+    """keep and ok in every slot: K not a multiple of 32 or 64, the serving
+    pool (1024), the Evaluator's (8192), and pools whose walk moves its
+    register window (past 2048 candidates) and streams the mask through the
+    ring (8193, 20000); with K = 1 every image is padding."""
+    _nms_equal(*_nms_inputs(3, K, dev), 0.45, 300)
+
+
+@pytest.mark.parametrize("pad", [0.0, -0.5, -2.0])
+@pytest.mark.parametrize("K", [65, 1024, 8193])
+def test_nms_kernel_padding_variants(dev, K, pad):
+    """Padding above the removed value -1 is picked (ok False) and
+    suppresses; padding below it is never picked."""
+    _nms_equal(*_nms_inputs(3, K, dev, seed=K, pad=pad), 0.45, 300)
+
+
+def test_nms_kernel_when_everything_is_removed(dev):
+    """Identical boxes: the first pick removes all the others, live padding
+    included, long before max_det; and an image whose positives are all
+    removed while spread-out live padding (0.0) is left to pick."""
+    K = 96
+    boxes = torch.tensor([10.0, 10, 50, 50]).repeat(2, K, 1)
+    far = torch.arange(40, K, dtype=torch.float32) * 100
+    boxes[1, 40:, 0] = boxes[1, 40:, 2] = far
+    boxes[1, 40:, 2] += 30
+    scores = torch.zeros(2, K)
+    scores[0, :50], scores[0, 50:] = 0.9, -0.5
+    scores[1, :40], scores[1, 40:] = 0.8, 0.0
+    keep, ok = _nms_equal(boxes.to(dev), scores.to(dev), 0.45, 80)
+    assert ok[0].tolist() == [True] + [False] * 79
+    assert keep[1, :57].tolist() == [0] + list(range(40, K))
+
+
+@pytest.mark.parametrize("K,max_det", [(65, 300), (1024, 2000), (5, 1)])
+def test_nms_kernel_max_det_past_k(dev, K, max_det):
+    """max_det above K (the slots past the walk are (0, False)), and one
+    step only."""
+    _nms_equal(*_nms_inputs(2, K, dev, seed=K), 0.45, max_det)
+
+
+@pytest.mark.parametrize("K", [64, 1023])
+def test_nms_kernel_degenerate_boxes(dev, K):
+    """Zero-area boxes and boxes with x2 < x1, whose IoU denominators are
+    zero or negative."""
+    _nms_equal(*_nms_inputs(3, K, dev, seed=K, degenerate=True), 0.45, 300)
+
+
+def test_nms_kernel_at_the_evaluator_shape(dev):
+    """B = 8, K = 8192: the Evaluator's batch and top_k."""
+    _nms_equal(*_nms_inputs(8, 8192, dev, seed=8), 0.45, 300)
 
 
 def test_nms_at_the_threshold(dev):

@@ -105,8 +105,9 @@ def test_boxes_match_jax():
 
 
 def test_non_max_suppression_past_the_register_pool_matches_jax():
-    """top_k = 10000, above the 8192 candidates the card kernel holds in
-    registers: 12000 multi-label candidates at conf 0.001 fill the pool."""
+    """top_k = 10000, a pool past 8192 candidates (where an earlier card
+    design left its registers): 12000 multi-label candidates at conf 0.001
+    fill it."""
     pred = _predictions(1, 4000, 3, seed=3)
     kw = dict(conf_thres=0.001, iou_thres=0.45, multi_label=True,
               max_det=300, top_k=10000)
@@ -121,11 +122,125 @@ def test_non_max_suppression_past_the_register_pool_matches_jax():
 
 
 def test_greedy_nms_takes_a_pool_past_the_registers():
-    """The wrapper has no cap on K (the card kernel spills past
-    REGISTER_K); on the CPU it runs the plain loop."""
-    from icafusion_tpu_torch.kernels.nms import REGISTER_K, greedy_nms
-    boxes, scores = _candidates(2, REGISTER_K + 8, REGISTER_K)
+    """The wrapper has no cap on K: 8200 candidates, past the 8192 that an
+    earlier card design held in registers. On the CPU it runs the plain
+    loop."""
+    from icafusion_tpu_torch.kernels.nms import greedy_nms
+    boxes, scores = _candidates(2, 8200, 8192)
     keep, ok = greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
                           0.45, 5)
     assert keep.shape == ok.shape == (2, 5)
     assert ok[0].all() and not ok[1].any()
+
+
+def _bitmask_walk(boxes, scores, iou_thres, max_det):
+    """The card's algorithm (csrc/greedy_nms.cu) in plain numpy, for sorted
+    scores: a dense mask, row i marking each j > i with IoU(i, j) >
+    iou_thres in float32 in the plain loop's operation order; then a walk
+    with a forward cursor. A step picks the first candidate at or past the
+    cursor that is not removed, if its score is > -1, keeps it with ok =
+    (score > 0) and removes its row; otherwise the walk ends and the slots
+    left are (0, False). The kernel reads "score > -1" and "score > 0" as
+    j < live and j < pos, the counts of those scores, which sorted scores
+    make prefixes. Step 0 of an image with no score > -1 picks index 0 in
+    the argmax loop with ok False: the slot the ended walk writes."""
+    B, K, _ = boxes.shape
+    f = np.float32
+    x1, y1, x2, y2 = (boxes[..., c].astype(f) for c in range(4))
+    area = (x2 - x1) * (y2 - y1)
+    keep = np.zeros((B, max_det), np.int32)
+    ok = np.zeros((B, max_det), bool)
+    for b in range(B):
+        iw = np.maximum(np.minimum(x2[b][:, None], x2[b][None])
+                        - np.maximum(x1[b][:, None], x1[b][None]), f(0))
+        ih = np.maximum(np.minimum(y2[b][:, None], y2[b][None])
+                        - np.maximum(y1[b][:, None], y1[b][None]), f(0))
+        inter = iw * ih
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iou = inter / (area[b][None] + area[b][:, None] - inter + f(1e-12))
+        mask = (iou > f(iou_thres)) & np.triu(np.ones((K, K), bool), 1)
+        removed = np.zeros(K, bool)
+        cursor = 0
+        for step in range(max_det):
+            free = np.flatnonzero(~removed[cursor:])
+            if not len(free) or not scores[b, cursor + free[0]] > -1:
+                break
+            j = cursor + free[0]
+            keep[b, step], ok[b, step] = j, scores[b, j] > 0
+            removed |= mask[j]
+            cursor = j + 1
+    return keep, ok
+
+
+def _sorted_candidates(B, K, pad, seed, degenerate=False, n_valid=None):
+    """Clustered boxes, scores with exact ties sorted descending, `pad`
+    after n_valid (80 % by default) and in the whole last image;
+    degenerate adds zero-area boxes and boxes with x2 < x1."""
+    rng = np.random.default_rng(seed)
+    ctr = np.repeat(rng.uniform(0, 200, (B, (K + 7) // 8, 2)), 8, axis=1)
+    xy = ctr[:, :K] + rng.normal(0, 6, (B, K, 2))
+    wh = rng.uniform(10, 60, (B, K, 2))
+    if degenerate:
+        wh[:, ::5] = 0.0
+        wh[:, 1::7, 0] *= -1.0
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    scores = -np.sort(-np.round(rng.uniform(0, 1, (B, K)) * 32) / 32, axis=1)
+    scores[:, int(0.8 * K) if n_valid is None else n_valid:] = pad
+    scores[-1] = pad
+    return boxes, scores.astype(np.float32)
+
+
+BITMASK_CASES = [
+    # K, max_det, padding, degenerate
+    (1, 300, -1.0, False),      # max_det > K, every image padding
+    (63, 300, 0.0, False),      # live padding picked with ok False
+    (65, 40, -0.5, True),
+    (200, 300, -2.0, False),    # padding below the removed value -1
+    (256, 100, -1.0, True),
+    (130, 500, -0.5, False),
+]
+
+
+@pytest.mark.parametrize("K,max_det,pad,degenerate", BITMASK_CASES,
+                         ids=[f"K{c[0]}-det{c[1]}-pad{c[2]}-deg{c[3]:d}"
+                              for c in BITMASK_CASES])
+def test_bitmask_walk_equals_the_argmax_loop(K, max_det, pad, degenerate):
+    """The card's scan rule against the plain loop and the Pallas kernel,
+    keep and ok in every slot: ties, padding of 0, -0.5, -1 and -2, zero-area
+    and inverted boxes, max_det past the live candidates and past K, K not a
+    multiple of 32 or 64."""
+    boxes, scores = _sorted_candidates(3, K, pad, seed=K, degenerate=degenerate)
+    got = _bitmask_walk(boxes, scores, 0.45, max_det)
+    ref = greedy_nms_reference(torch.from_numpy(boxes),
+                               torch.from_numpy(scores), 0.45, max_det)
+    pal = pallas_greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.45,
+                            max_det, interpret=True)
+    for k, o in (ref, pal):
+        np.testing.assert_array_equal(got[0], np.asarray(k))
+        np.testing.assert_array_equal(got[1], np.asarray(o))
+
+
+def test_bitmask_walk_when_everything_is_removed():
+    """Identical boxes: the first pick removes every other candidate, live
+    padding (-0.5) included, long before max_det; and an image whose
+    positives are all removed while spread-out live padding (0.0) is left
+    to pick with ok False."""
+    K = 96
+    boxes = np.tile(np.float32([10, 10, 50, 50]), (2, K, 1))
+    far = np.arange(40, K, dtype=np.float32) * 100
+    boxes[1, 40:, 0] = boxes[1, 40:, 2] = far
+    boxes[1, 40:, 2] += 30
+    scores = np.zeros((2, K), np.float32)
+    scores[0, :50], scores[0, 50:] = 0.9, -0.5
+    scores[1, :40], scores[1, 40:] = 0.8, 0.0
+    got = _bitmask_walk(boxes, scores, 0.45, 80)
+    ref = greedy_nms_reference(torch.from_numpy(boxes),
+                               torch.from_numpy(scores), 0.45, 80)
+    pal = pallas_greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.45, 80,
+                            interpret=True)
+    for k, o in (ref, pal):
+        np.testing.assert_array_equal(got[0], np.asarray(k))
+        np.testing.assert_array_equal(got[1], np.asarray(o))
+    assert got[1][0].tolist() == [True] + [False] * 79
+    assert got[0][1, :57].tolist() == [0] + list(range(40, K))
+    assert got[1][1].sum() == 1
