@@ -33,7 +33,17 @@ exit code is non-zero and the final line is never printed:
 5. the trained yolov5n-Transfusion checkpoint (artifacts/trained_n320, read
    by the port's own reader) through the port's Evaluator on its 77 val
    pairs at 320, float32 and bfloat16: mAP@50 within 0.3 points of the
-   reference stack's record in TRAINED_PARITY.json.
+   reference stack's record in TRAINED_PARITY.json;
+6. training: (a) three Trainer steps of a tiny model (64 px, batch 2,
+   fp32, dropout off) on the card against the same steps on the CPU, and
+   the max-pool gradients of SPPF and of the fusion block's pooling on tied
+   integer data against the first-winner plain version; (b) the slice:
+   yolov5l-Transfusion at 640, batch 8, bf16, SGD, on batches of the
+   port's PairedLoader over 48 synthetic FLIR-geometry pairs (512 x 640):
+   2 warm-up and 10 timed steps, step time, images/s, device busy, idle
+   share and peak memory; (c) fit: yolov5n-Transfusion at 320 on the same
+   pairs, 2 epochs of batch 16 in bf16 with the EMA evaluated after each,
+   the three kernels launched there, the stripped checkpoint served.
 
 Before the last line it prints one JSON object with each kernel's launches
 on the main path, error, device times (kernel, plain version and library
@@ -44,12 +54,14 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import copy
 import importlib.util
 import itertools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -229,22 +241,28 @@ def nms_case(B: int, K: int, gen: torch.Generator, pad: float = -1.0):
 STEADY_REQUESTS = 20
 
 
-def profile_requests(engine, pair, wall_ms: float, n: int = 3):
-    """Device time by kernel over n requests (torch.profiler / CUPTI), and
-    the device's idle share of wall_ms, a request's unprofiled wall time
-    (the profiler's own host overhead stretches the profiled wall)."""
+def profile_calls(fn, n: int = 3):
+    """(device time by kernel in us over n calls of fn, by torch.profiler
+    / CUPTI; the profiled wall time in us)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(n):
-            engine.predict_arrays(*pair)
+            fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t)
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = {e.key: e.self_device_time_total for e in kern}
+    return {e.key: e.self_device_time_total for e in kern}, wall_us
+
+
+def profile_requests(engine, pair, wall_ms: float, n: int = 3):
+    """Device time by kernel over n requests (torch.profiler / CUPTI), and
+    the device's idle share of wall_ms, a request's unprofiled wall time
+    (the profiler's own host overhead stretches the profiled wall)."""
+    dev_us, wall_us = profile_calls(lambda: engine.predict_arrays(*pair), n)
     busy = sum(dev_us.values())
     if not busy:
         print("   profiler: no device events recorded")
@@ -269,6 +287,58 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
         print(f"   {100 * v / busy:5.1f}%  {v / n / 1e3:7.3f} ms  {k[:90]}")
 
 
+def first_winner_pool_grad(x: torch.Tensor, g: torch.Tensor, k: int,
+                           s: int, p: int) -> torch.Tensor:
+    """Plain version of the max-pool gradient the JAX package takes
+    (nn/layers.py:390-446): each window's gradient goes to the first
+    row-major position holding its maximum; padding is -inf. float64 on
+    the CPU."""
+    F = torch.nn.functional
+    x, g = x.double().cpu(), g.double().cpu()
+    B, C, H, W = x.shape
+    xp = F.pad(x, (p, p, p, p), value=-math.inf)
+    win = F.unfold(xp.reshape(B * C, 1, H + 2 * p, W + 2 * p), k, stride=s)
+    y = win.amax(1, keepdim=True)
+    first = (win == y).double().argmax(1, keepdim=True)     # first maximum
+    contrib = torch.zeros_like(win).scatter_(
+        1, first, g.reshape(B * C, 1, -1))
+    out = F.fold(contrib, (H + 2 * p, W + 2 * p), k, stride=s)
+    return out[..., p:p + H, p:p + W].reshape(B, C, H, W)
+
+
+def check_pool_grads(gen: torch.Generator):
+    """SPPF's three chained 5x5 pools and the fusion block's floor-mode
+    pool (P4 at 640: 40 -> 16, kernel 10, stride 2) on integer data with
+    many ties: the card's autograd against first_winner_pool_grad. Integer
+    upstream gradients keep every sum exact."""
+    F = torch.nn.functional
+    x = torch.randint(0, 4, (2, 8, 20, 20), generator=gen).float()
+    ws = [torch.randint(-3, 4, (2, 8, 20, 20), generator=gen).float()
+          for _ in range(4)]
+    xc = x.cuda().requires_grad_()
+    ys = [xc]
+    for _ in range(3):
+        ys.append(F.max_pool2d(ys[-1], 5, 1, 2))
+    sum((y * w.cuda()).sum() for y, w in zip(ys, ws)).backward()
+    ys = [x]
+    for _ in range(3):
+        ys.append(F.max_pool2d(ys[-1], 5, 1, 2))
+    g = ws[3].double()
+    for i in (2, 1, 0):
+        g = ws[i].double() + first_winner_pool_grad(ys[i], g, 5, 1, 2)
+    assert torch.equal(xc.grad.double().cpu(), g), "SPPF pool gradient"
+    x = torch.randint(0, 4, (2, 8, 40, 40), generator=gen).float()
+    w = torch.randint(-3, 4, (2, 8, 16, 16), generator=gen).float()
+    xc = x.cuda().requires_grad_()
+    (F.max_pool2d(xc, 10, 2) * w.cuda()).sum().backward()
+    assert torch.equal(xc.grad.double().cpu(),
+                       first_winner_pool_grad(x, w, 10, 2, 0)), \
+        "fusion-block pool gradient"
+    print("   max-pool gradients on ties equal the first-winner plain "
+          "version: SPPF 3 x 5x5/s1 chained (2, 8, 20, 20), fusion pool "
+          "10x10/s2 (2, 8, 40, 40)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -287,7 +357,7 @@ def main() -> int:
     from icafusion_tpu_torch.kernels.nms import greedy_nms, greedy_nms_reference
     from icafusion_tpu_torch.kernels.packed_conv import (
         conv3x3_bn_silu, conv3x3_bn_silu_reference)
-    from icafusion_tpu_torch.models.assembler import build_model
+    from icafusion_tpu_torch.models.assembler import build_model, init_weights
     from icafusion_tpu_torch.models.zoo import (icafusion_config,
                                                 tiny_icafusion_config)
     from icafusion_tpu_torch.serve.engine import ServingEngine
@@ -586,6 +656,22 @@ def main() -> int:
             assert abs(r["map50"] - jax_rec["map50"]) <= MAP50_GATE, r["map50"]
     done(t0)
 
+    t0 = phase("6a train step: card vs CPU (tiny, 64 px, b2, fp32)")
+    train_card_vs_cpu()
+    check_pool_grads(gen)
+    done(t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        from icafusion_tpu_torch.data.synthetic import make_dataset
+        data_yaml = make_dataset(Path(tmp) / "data", 48,
+                                 np.random.default_rng(0), hw=(512, 640))
+        t0 = phase("6b slice: training yolov5l-Transfusion 640, b8, bf16, SGD")
+        train_slice(data_yaml, card)
+        done(t0)
+        t0 = phase("6c fit: yolov5n-Transfusion 320, 2 epochs, b16, bf16")
+        fit_slice(data_yaml, Path(tmp) / "runs")
+        done(t0)
+
     kernels = []
     for name, src, tpu in (
             ("dual_cross_attention",
@@ -610,6 +696,227 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BATCH = 2, 10, 8
+
+
+def _no_dropout(model):
+    from icafusion_tpu_torch.nn.fusion import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+# Card against CPU, tiny model, 64 px, batch 2, fp32. BatchNorm over 8
+# values per channel at P5 magnifies rounding: on the CPU alone a change of
+# one ulp in the input moves the weights and statistics by 7.7e-6 after
+# three steps, and the card's own summation orders (cuDNN's choice of
+# algorithm, atomics) moved them by 2.4e-5 and 1.9e-4 in two runs. So the
+# first step's gradients are held tensor by tensor (GRAD_RTOL of the
+# tensor's largest gradient, plus GRAD_RTOL / 10 of the largest of all for
+# those near zero) and the state after three steps to STATE_ATOL.
+GRAD_RTOL, STATE_ATOL = 1e-3, 1e-3
+
+
+def train_card_vs_cpu():
+    """One tiny model from one batch, dropout off, on the card and on the
+    CPU: the first step's gradients; then three Trainer steps: loss and
+    items rtol 1e-4, parameters, BatchNorm statistics and EMA within
+    STATE_ATOL (the momentum printed)."""
+    from icafusion_tpu_torch.config import load_hyp_config
+    from icafusion_tpu_torch.models.assembler import build_model, init_weights
+    from icafusion_tpu_torch.models.zoo import tiny_icafusion_config
+    from icafusion_tpu_torch.train.loss import pad_targets
+    from icafusion_tpu_torch.train.trainer import Trainer
+    base = _no_dropout(init_weights(build_model(tiny_icafusion_config()),
+                                    torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    rgb = torch.from_numpy(rng.random((2, 3, 64, 64), np.float32))
+    ir = torch.from_numpy(rng.random((2, 3, 64, 64), np.float32))
+    labels = [np.array([[0, 0.5, 0.5, 0.4, 0.4], [1, 0.25, 0.25, 0.2, 0.3],
+                        [2, 0.7, 0.3, 0.1, 0.15]], np.float32)] * 2
+    t, m = (torch.from_numpy(a) for a in pad_targets(labels, 8))
+    runs, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(copy.deepcopy(base), load_hyp_config(), epochs=3,
+                     steps_per_epoch=1, batch_size=2, imgsz=64,
+                     warmup_min_steps=2, device=dev)
+        batch = [x.to(dev) for x in (rgb, ir, t, m)]
+        model = copy.deepcopy(base).to(dev).train()
+        tr.loss_fn(model(*batch[:2]), *batch[2:])[0].backward()
+        grads[dev] = {k: p.grad.double().cpu()
+                      for k, p in model.named_parameters()}
+        step = tr.make_train_step()
+        mets = [step(*batch) for _ in range(3)]
+        runs[dev] = (tr, [{k: float(v) for k, v in mt.items()}
+                          for mt in mets])
+    top = max(g.abs().max().item() for g in grads["cpu"].values())
+    worst_g = 0.0
+    for k, g in grads["cpu"].items():
+        d = (grads["cuda"][k] - g).abs().max().item()
+        worst_g = max(worst_g, d / (g.abs().max().item() + top / 10))
+        assert d <= GRAD_RTOL * (g.abs().max().item() + top / 10), (k, d)
+    (tc, mc), (tp, mp) = runs["cuda"], runs["cpu"]
+    for a, b in zip(mc, mp):
+        for k in ("loss", "lbox", "lobj", "lcls"):
+            assert math.isclose(a[k], b[k], rel_tol=1e-4), (k, a[k], b[k])
+    worst = {}
+    for name, x, y in (("state", tc.model.state_dict(),
+                        tp.model.state_dict()),
+                       ("momentum", tc.opt.momentum, tp.opt.momentum),
+                       ("ema", tc.ema.tree, tp.ema.tree)):
+        worst[name] = max((x[k].double().cpu() - y[k].double()).abs().max()
+                          .item() for k in y
+                          if not k.endswith("num_batches_tracked"))
+    print(f"   first-step gradients: max |card - CPU| / (tensor max + "
+          f"global max / 10) = {worst_g:.3g}; losses "
+          f"{[round(r['loss'], 6) for r in mc]} (card) vs "
+          f"{[round(r['loss'], 6) for r in mp]} (CPU); max |card - CPU| "
+          f"after 3 steps: {worst}")
+    for name in ("state", "ema"):
+        assert worst[name] <= STATE_ATOL, (name, worst[name])
+
+
+def train_slice(data_yaml: Path, card: str):
+    """yolov5l-Transfusion at 640, batch 8, bf16 autocast, SGD: batches from
+    the port's PairedLoader (mosaic, HSV, flips) over the synthetic pairs,
+    2 warm-up and 10 timed steps; every loss finite, the parameters moved,
+    every tensor of the state on the card."""
+    from icafusion_tpu_torch.config import load_data_config, load_hyp_config
+    from icafusion_tpu_torch.data.datasets import PairedDetectionDataset
+    from icafusion_tpu_torch.data.loader import PairedLoader
+    from icafusion_tpu_torch.models.assembler import build_model, init_weights
+    from icafusion_tpu_torch.models.zoo import icafusion_config
+    from icafusion_tpu_torch.train.trainer import Trainer
+    dc = load_data_config(data_yaml)
+    hyp = load_hyp_config("hyp.scratch.yaml")
+    root = Path(dc.path)
+    ds = PairedDetectionDataset(str(root / dc.train_rgb),
+                                str(root / dc.train_ir), 640, nc=dc.nc,
+                                hyp=hyp, augment=True)
+    loader = PairedLoader(ds, TRAIN_BATCH, max_targets=128, seed=0,
+                          num_workers=8)
+    t = time.perf_counter()
+    host = []
+    epoch = 0
+    while len(host) < TRAIN_WARMUP + TRAIN_TIMED:
+        host += list(loader.epoch(epoch))
+        epoch += 1
+    host = host[:TRAIN_WARMUP + TRAIN_TIMED]
+    load_s = time.perf_counter() - t
+
+    def up(b):
+        img = lambda a: (torch.from_numpy(a).cuda().permute(0, 3, 1, 2)
+                         .float().div_(255.0))
+        return (img(b["rgb"]), img(b["ir"]), torch.from_numpy(
+            b["targets"]).cuda(), torch.from_numpy(b["mask"]).cuda())
+
+    batches = [up(b) for b in host]
+    print(f"   {len(batches)} batches of {TRAIN_BATCH} from PairedLoader over "
+          f"{len(ds)} pairs in {load_s:.1f} s; targets per image "
+          f"{float(np.mean([b['mask'].sum(1).mean() for b in host])):.1f}")
+    model = init_weights(build_model(icafusion_config("l", nc=3)),
+                         torch.Generator().manual_seed(0))
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(model, hyp, epochs=10, steps_per_epoch=loader.steps_per_epoch,
+                 batch_size=TRAIN_BATCH, imgsz=640, bf16=True)
+    step = tr.make_train_step()
+    losses, ms = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        met = step(*b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert all(math.isfinite(x) for x in losses), losses
+    moved = sum(not torch.equal(before[k], v.cpu())
+                for k, v in tr.model.state_dict().items())
+    assert moved > 0.9 * len(before), (moved, len(before))
+    on_card = [t.is_cuda for t in itertools.chain(
+        tr.model.parameters(), tr.model.buffers(),
+        tr.opt.momentum.values(), tr.ema.tree.values())]
+    assert all(on_card), "a tensor of the train state is off the card"
+    timed = ms[TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    dev_us, wall_us = profile_calls(lambda: step(*batches[-1]), 3)
+    busy = sum(dev_us.values()) / 3 / 1e3
+    if not busy:
+        raise RuntimeError("the profiler recorded no device time")
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    print(f"   {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"parameters; losses {[round(x, 4) for x in losses]}; "
+          f"{moved}/{len(before)} state tensors moved")
+    print(f"   step ms (host clock, synchronised): warm-up "
+          f"{[round(x, 1) for x in ms[:TRAIN_WARMUP]]}, timed "
+          f"{[round(x, 1) for x in timed]}; median {med:.2f} ms -> "
+          f"{1e3 * TRAIN_BATCH / med:.1f} images/s (pairs)")
+    print(f"   device busy {busy:.2f} ms per step (torch.profiler, 3 steps; "
+          f"profiled wall {wall_us / 3 / 1e3:.2f} ms) -> idle share "
+          f"{1 - busy / med:.3f} of the unprofiled median; peak memory "
+          f"{peak:.2f} GiB (max_memory_allocated); {card}")
+    for k, v in top:
+        print(f"   {100 * v / 3e3 / busy:5.1f}%  {v / 3e3:8.3f} ms  {k[:90]}")
+
+
+def fit_slice(data_yaml: Path, project: Path):
+    """fit() of yolov5n-Transfusion at 320 on the synthetic pairs: 2 epochs
+    of batch 16 in bf16 with the EMA evaluated after each; results.csv,
+    last/best checkpoints, the kernels launched by the evaluations, and the
+    stripped checkpoint read back and served on the card."""
+    from icafusion_tpu_torch.config import load_data_config, load_hyp_config
+    from icafusion_tpu_torch.kernels.cross_attention import dual_cross_attention
+    from icafusion_tpu_torch.kernels.nms import greedy_nms
+    from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
+    from icafusion_tpu_torch.models.assembler import build_model
+    from icafusion_tpu_torch.models.zoo import icafusion_config
+    from icafusion_tpu_torch.serve.engine import ServingEngine
+    from icafusion_tpu_torch.train.fit import FitConfig, fit
+    from icafusion_tpu_torch.utils.checkpoint import load_inference_variables
+    from icafusion_tpu_torch.utils.convert import load_jax_variables
+    import csv
+    cfg = FitConfig(model_cfg=icafusion_config("n", nc=3),
+                    data_cfg=load_data_config(data_yaml),
+                    hyp=load_hyp_config("hyp.scratch.yaml"), epochs=2,
+                    batch_size=16, imgsz=320, project=str(project),
+                    bf16=True, workers=8)
+    wrappers = (dual_cross_attention, greedy_nms, conv3x3_bn_silu)
+    for fn in wrappers:
+        fn.launches = 0
+    t = time.perf_counter()
+    result = fit(cfg)
+    fit_s = time.perf_counter() - t
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    run = Path(result["run_dir"])
+    with open(run / "results.csv") as f:
+        rows = list(csv.DictReader(f))
+    print(f"   fit {fit_s:.1f} s; launches during fit {counts}")
+    for r in rows:
+        print(f"   {dict(r)}")
+    assert len(rows) == 2, rows
+    for r in rows:
+        for k in ("lbox", "lobj", "lcls", "mAP50", "mAP"):
+            assert math.isfinite(float(r[k])), (k, r)
+    w = run / "weights"
+    for name in ("last.ckpt", "best.ckpt", "stripped.ckpt"):
+        assert (w / name).is_file(), name
+    assert all(counts.values()), counts
+    model = load_jax_variables(build_model(icafusion_config("n", nc=3)),
+                               load_inference_variables(w / "stripped.ckpt"))
+    engine = ServingEngine(model, 320, 4, conf_thres=0.001)
+    rng = np.random.default_rng(2)
+    out = engine.predict_arrays(
+        rng.integers(0, 256, (4, 320, 320, 3), np.uint8),
+        rng.integers(0, 256, (4, 320, 320, 3), np.uint8))
+    assert len(out) == 4 and all(
+        x.ndim == 2 and x.shape[1] == 6 and np.isfinite(x).all()
+        for x in out), [x.shape for x in out]
+    print(f"   stripped.ckpt served on the card: detections per image "
+          f"{[len(x) for x in out]}")
 
 
 if __name__ == "__main__":

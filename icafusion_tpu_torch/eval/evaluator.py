@@ -24,6 +24,7 @@ from icafusion_tpu_torch.eval.metrics import ConfusionMatrix, summarize
 from icafusion_tpu_torch.models.assembler import ICAFusionModel
 from icafusion_tpu_torch.ops.boxes import scale_coords_np
 from icafusion_tpu_torch.ops.nms import detections_to_numpy, non_max_suppression
+from icafusion_tpu_torch.utils.general import resolve_device
 
 IOUV = np.linspace(0.5, 0.95, 10)
 
@@ -82,10 +83,7 @@ class Evaluator:
                 raise TypeError(f"Evaluator: unknown argument {name!r}")
             if value not in (None, False):
                 raise NotImplementedError(f"Evaluator: {name} is not ported")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Evaluator: no CUDA device (pass device='cpu' "
-                               "to evaluate on the CPU)")
+        self.device = resolve_device(device, "Evaluator")
         self.nc = nc
         self.conf_thres, self.iou_thres = conf_thres, iou_thres
         self.max_det, self.top_k = max_det, top_k

@@ -9,9 +9,9 @@ models/yolo_test.py:115-163 forward_once, :216-302 parse_model):
   before the first fusion form two independent towers;
 - modules come from a registry (``MODULE_BUILDERS``) instead of eval().
 
-This slice registers the modules of the serving path: Conv, Bottleneck, C3,
-SPPF, Focus, Concat, Upsample, TransformerFusionBlock and Detect. Layers
-are registered as ``m{i}``, the flax names.
+This slice registers the modules of the serving and training paths: Conv,
+Bottleneck, C3, SPPF, Focus, Concat, Upsample, TransformerFusionBlock and
+Detect. Layers are registered as ``m{i}``, the flax names.
 """
 
 from __future__ import annotations
@@ -21,11 +21,13 @@ import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from icafusion_tpu_torch.config import FromSpec, ModelConfig
-from icafusion_tpu_torch.models.detect import Detect
+from icafusion_tpu_torch.models.detect import (Detect, check_anchor_order,
+                                               default_strides)
 from icafusion_tpu_torch.nn import fusion, layers
 from icafusion_tpu_torch.utils.general import make_divisible
 
@@ -120,11 +122,10 @@ def resolve_model(cfg: ModelConfig) -> Tuple[Tuple[ResolvedLayer, ...],
 
 
 class ICAFusionModel(nn.Module):
-    """The two-stream detector for inference: forward(rgb, ir) with NCHW
-    float images returns the decoded predictions (B, N, 5 + nc) in float32.
-
-    Only inference is ported: the model is built in eval mode and
-    ``train(True)`` raises."""
+    """The two-stream detector: forward(rgb, ir) with NCHW float images
+    returns, in eval mode, the decoded predictions (B, N, 5 + nc) in
+    float32 and, in train mode, Detect's raw maps per level. It is built in
+    eval mode."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -132,13 +133,7 @@ class ICAFusionModel(nn.Module):
         self.resolved, self.save = resolve_model(cfg)
         for r in self.resolved:
             self.add_module(f"m{r.i}", MODULE_BUILDERS[r.module](r.args))
-        super().train(False)
-
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError("the port serves only; training is not "
-                                      "ported yet")
-        return super().train(False)
+        self.train(False)
 
     def cast(self, dtype: torch.dtype) -> "ICAFusionModel":
         """Cast the parameters in place to a compute dtype, the way the JAX
@@ -174,6 +169,74 @@ class ICAFusionModel(nn.Module):
             if r.i in self.save:
                 y[r.i] = out
         return out
+
+
+def detect_layer(cfg: ModelConfig) -> ResolvedLayer:
+    resolved, _ = resolve_model(cfg)
+    if resolved[-1].module != "Detect":
+        raise ValueError(f"config {cfg.name}: the last layer must be Detect")
+    return resolved[-1]
+
+
+def model_strides(cfg: ModelConfig) -> Tuple[int, ...]:
+    return default_strides(len(detect_layer(cfg).args[1]))
+
+
+def anchors_grid_units(cfg: ModelConfig) -> np.ndarray:
+    """(nl, na, 2) anchors in grid units (pixels / stride), in the
+    stride-checked order, as the loss takes them (yolo_test.py:105)."""
+    _, anchors, _ = detect_layer(cfg).args
+    strides = default_strides(len(anchors))
+    a = np.asarray(anchors, np.float32).reshape(len(anchors), -1, 2)
+    return (check_anchor_order(a, strides)
+            / np.asarray(strides, np.float32).reshape(-1, 1, 1))
+
+
+def init_weights(model: ICAFusionModel,
+                 generator: Optional[torch.Generator] = None) -> ICAFusionModel:
+    """Draw ``model``'s parameters anew from the distributions of the JAX
+    package's initialisers, for training from scratch: every conv kernel
+    U(+-1/sqrt(fan_in)) (its TORCH_CONV_INIT, torch's default), Detect's
+    biases U(+-1/sqrt(c_in)); the attention projections N(0, 0.001) with
+    zero biases; the MLP kernels U(+-1/sqrt(fan_in)) with zero biases;
+    norms at scale 1, bias 0 and BatchNorm statistics at mean 0, var 1;
+    the residual gains 1, the pooling blend 0.5 and 0.5, the positional
+    embeddings 0. (build_model's He-uniform draw is for serving.)"""
+    from icafusion_tpu_torch.nn import fusion as fu
+    init = nn.init
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                init.uniform_(m.weight, -bound, bound, generator=generator)
+                if m.bias is not None:
+                    init.uniform_(m.bias, -bound, bound, generator=generator)
+            elif isinstance(m, fu.CrossAttention):
+                for name in fu.NAMES + ("out_vis", "out_ir"):
+                    lin = getattr(m, name)
+                    init.normal_(lin.weight, 0.0, 0.001, generator=generator)
+                    init.zeros_(lin.bias)
+            elif isinstance(m, fu.CrossTransformerBlock):
+                for name in ("mlp_vis_fc1", "mlp_vis_fc2", "mlp_ir_fc1",
+                             "mlp_ir_fc2"):
+                    lin = getattr(m, name)
+                    bound = 1.0 / math.sqrt(lin.in_features)
+                    init.uniform_(lin.weight, -bound, bound,
+                                  generator=generator)
+                    init.zeros_(lin.bias)
+                init.ones_(m.coefficients)
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+                init.ones_(m.weight)
+                init.zeros_(m.bias)
+                if isinstance(m, nn.BatchNorm2d):
+                    m.reset_running_stats()
+            elif isinstance(m, fu.LearnableWeights):
+                init.constant_(m.w1, 0.5)
+                init.constant_(m.w2, 0.5)
+            elif isinstance(m, fu.TransformerFusionBlock):
+                init.zeros_(m.pos_emb_vis)
+                init.zeros_(m.pos_emb_ir)
+    return model
 
 
 def build_model(cfg: ModelConfig,

@@ -1,8 +1,10 @@
 """Anchor-based YOLO Detect head with the inference decode.
 
 Counterpart of the JAX package's models/detect.py (reference
-models/yolo_test.py:26-70): a 1x1 conv per level to na * (nc + 5) channels,
-then, in float32,
+models/yolo_test.py:26-70): a 1x1 conv per level to na * (nc + 5) channels.
+In train mode it returns those raw maps, one (B, ny, nx, na, 5 + nc) tensor
+per level, for the loss (the JAX ``decode=False``); in eval mode it decodes
+them, in float32,
 
     xy = (sigmoid(t_xy) * 2 - 0.5 + grid) * stride
     wh = (sigmoid(t_wh) * 2) ** 2 * anchor_pixels
@@ -54,9 +56,18 @@ class Detect(nn.Module):
         for i, c in enumerate(ch):
             self.add_module(f"m{i}", nn.Conv2d(c, self.no * self.na, 1))
 
-    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
-        """Returns decoded predictions (B, sum ny*nx*na, 5 + nc), float32:
-        xywh in input pixels, objectness, class scores."""
+    def forward(self, xs: List[torch.Tensor]):
+        """Eval mode: decoded predictions (B, sum ny*nx*na, 5 + nc), float32:
+        xywh in input pixels, objectness, class scores. Train mode: the raw
+        maps per level, (B, ny, nx, na, 5 + nc) in the activation dtype."""
+        if self.training:
+            raw = []
+            for i, x in enumerate(xs):
+                t = getattr(self, f"m{i}")(x)
+                b, _, ny, nx = t.shape
+                raw.append(t.reshape(b, self.na, self.no, ny, nx)
+                           .permute(0, 3, 4, 1, 2))
+            return raw
         z = []
         for i, x in enumerate(xs):
             t = getattr(self, f"m{i}")(x)

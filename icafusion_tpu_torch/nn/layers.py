@@ -1,10 +1,11 @@
-"""Backbone and neck layers of the serving path, NCHW.
+"""Backbone and neck layers, NCHW, for serving and training.
 
 Counterparts of the JAX package's nn/layers.py (reference models/common.py).
 Submodule names equal the flax names (``conv``, ``bn``, ``cv1``, ``m0``...)
 so that utils/convert.py maps a flax variable tree onto these modules by
 path. BatchNorm uses the reference's YOLOv5 settings: eps 1e-3, momentum
-0.03.
+0.03 (flax's 0.97), and in train mode updates its running variance with the
+biased batch variance, as flax does.
 """
 
 from __future__ import annotations
@@ -28,6 +29,30 @@ def autopad(k, p=None):
     return p
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode update of the running variance uses
+    the biased batch variance, as flax's BatchNorm does (torch uses the
+    unbiased one): running = (1 - m) running + m var_biased. Normalisation
+    uses the batch statistics, as in both."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # torch updates copies (autograd keeps them; the buffers may change)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            # torch added m * var * n / (n - 1): rescale that term by
+            # (n - 1) / n and give back the share of (1 - m) old it took
+            self.running_mean.copy_(mean)
+            self.running_var.mul_((1 - self.momentum) / n).add_(
+                var, alpha=(n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class Conv(nn.Module):
     """Conv2d(bias=False) + BatchNorm + SiLU (reference common.py:48-60).
 
@@ -42,7 +67,7 @@ class Conv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g,
                               bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         if act is True:
             self.act = nn.SiLU()
         elif act in (False, None):
@@ -104,7 +129,10 @@ class C3(nn.Module):
 
 class SPPF(nn.Module):
     """SPP-Fast: three chained k x k stride-1 max pools (reference
-    common.py:252-267); padding is -inf, as torch's max_pool2d pads."""
+    common.py:252-267); padding is -inf, as torch's max_pool2d pads. The
+    pool's gradient goes to the first row-major maximum of each window,
+    which is where the JAX package's custom VJP sends it (ties are
+    systematic in the chained pools)."""
 
     def __init__(self, c1: int, c2: int, k: int = 5):
         super().__init__()

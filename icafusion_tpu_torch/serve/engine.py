@@ -20,6 +20,7 @@ from icafusion_tpu_torch.models.assembler import ICAFusionModel
 from icafusion_tpu_torch.ops.boxes import scale_coords_np
 from icafusion_tpu_torch.ops.nms import (Detections, detections_to_numpy,
                                          non_max_suppression)
+from icafusion_tpu_torch.utils.general import resolve_device
 
 TOP_K = 1024   # candidates entering NMS, as the JAX engine serves
 
@@ -35,10 +36,7 @@ class ServingEngine:
                  batch_size: int = 32, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,
                  dtype: str = "bfloat16", device=None):
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ServingEngine: no CUDA device (pass "
-                               "device='cpu' to serve on the CPU)")
+        self.device = resolve_device(device, "ServingEngine")
         self.canvas = ((img_size, img_size) if isinstance(img_size, int)
                        else tuple(img_size))
         self.batch_size = batch_size

@@ -1,25 +1,66 @@
-"""Carry a flax variable tree of the JAX package into the port's modules.
+"""Carry flax variable trees of the JAX package into the port's modules and
+back.
 
 The port's modules carry the flax module names, so a flax leaf at
 ``params/m20/crosstransformer0/crossatt/q_vis/kernel`` fills the port tensor
-``m20.crosstransformer0.crossatt.q_vis.weight``. Leaf names map as
-kernel -> weight, scale -> weight, mean -> running_mean, var -> running_var;
+``m20.crosstransformer0.crossatt.q_vis.weight``. ``flax_paths`` is the one
+table of that correspondence: a conv or dense ``weight`` is a flax
+``kernel``, a BatchNorm or LayerNorm ``weight`` a ``scale``,
+``running_mean``/``running_var`` are ``batch_stats`` ``mean``/``var``, and
 the rest keep their names. Layouts change as the JAX package's
-utils/torch_convert.py:177-185 changes them: conv kernels HWIO -> OIHW,
-dense kernels (in, out) -> (out, in).
+utils/torch_convert.py:177-185 changes them: conv kernels HWIO <-> OIHW,
+dense kernels (in, out) <-> (out, in). The same moves apply to any tensor
+shaped like a parameter (an optimizer's momentum, Adam's m and v).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
-         "var": "running_var"}
 COLLECTIONS = ("params", "batch_stats")
+FlaxPath = Tuple[str, Tuple[str, ...]]      # (collection, path)
+
+_NORMS = (nn.BatchNorm2d, nn.LayerNorm)
+_KERNELS = (nn.Conv2d, nn.Linear)
+
+
+def flax_paths(model: nn.Module) -> Dict[str, FlaxPath]:
+    """State-dict name -> (collection, flax path) of every parameter and
+    BatchNorm statistic of ``model`` (``num_batches_tracked`` has no flax
+    counterpart and is left out)."""
+    table = {}
+    for prefix, m in model.named_modules():
+        path = tuple(prefix.split(".")) if prefix else ()
+        for name, _ in m.named_parameters(recurse=False):
+            leaf = name
+            if name == "weight" and isinstance(m, _KERNELS):
+                leaf = "kernel"
+            elif name == "weight" and isinstance(m, _NORMS):
+                leaf = "scale"
+            table[".".join(path + (name,))] = ("params", path + (leaf,))
+        if isinstance(m, nn.BatchNorm2d):
+            for name, leaf in (("running_mean", "mean"),
+                               ("running_var", "var")):
+                table[".".join(path + (name,))] = ("batch_stats",
+                                                   path + (leaf,))
+    return table
+
+
+def to_flax_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
+    """A port tensor's values in flax layout (kernels transposed)."""
+    if leaf == "kernel":
+        return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+    return arr
+
+
+def from_flax_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
+    if leaf == "kernel":
+        return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    return arr
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -29,6 +70,63 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield from _leaves(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), np.asarray(v)
+
+
+def _set(tree: dict, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def flax_tree(model: nn.Module, tensors: Mapping[str, torch.Tensor],
+              collection: str = "params") -> dict:
+    """Nested dict of float32 numpy arrays in flax layout, one leaf for each
+    tensor of ``tensors`` (state-dict name -> tensor shaped like that
+    entry) whose name lies in ``collection``."""
+    out: dict = {}
+    for name, (coll, path) in flax_paths(model).items():
+        if coll == collection:
+            # a copy: the tensor may change after (in-place optimizer
+            # steps, a checkpoint written on a thread)
+            arr = tensors[name].detach().to("cpu", torch.float32,
+                                            copy=True).numpy()
+            _set(out, path, np.ascontiguousarray(to_flax_layout(arr,
+                                                                path[-1])))
+    return out
+
+
+def torch_tensors(model: nn.Module, tree: Mapping,
+                  collection: str = "params") -> Dict[str, np.ndarray]:
+    """The inverse of flax_tree: state-dict name -> numpy array in the port's
+    layout. Strict: raises on a leaf with no port tensor, on a wrong shape
+    and on a port tensor the tree does not fill."""
+    by_path = {p: n for n, (c, p) in flax_paths(model).items()
+               if c == collection}
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    out = {}
+    for path, arr in _leaves(tree):
+        if path not in by_path:
+            raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has no "
+                           "port tensor")
+        name = by_path[path]
+        arr = from_flax_layout(arr, path[-1])
+        if tuple(arr.shape) != shapes[name]:
+            raise ValueError(f"{name}: flax {arr.shape} vs port "
+                             f"{shapes[name]}")
+        out[name] = arr
+    missing = sorted(set(by_path.values()) - set(out))
+    if missing:
+        raise KeyError(f"{len(missing)} port tensors not filled, e.g. "
+                       f"{missing[:5]}")
+    return out
+
+
+def to_jax_variables(model: nn.Module) -> dict:
+    """{"params": ..., "batch_stats": ...} of ``model`` as the JAX package
+    holds them: nested dicts of float32 numpy arrays in flax layout. The
+    inverse of load_jax_variables."""
+    sd = model.state_dict()
+    return {c: flax_tree(model, sd, c) for c in COLLECTIONS}
 
 
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
@@ -41,26 +139,10 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     unknown = set(variables) - set(COLLECTIONS)
     if unknown:
         raise KeyError(f"unknown variable collections {sorted(unknown)}")
-    targets = {k: v for k, v in model.state_dict(keep_vars=True).items()
-               if not k.endswith("num_batches_tracked")}
-    filled = set()
-    for coll in COLLECTIONS:
-        for path, arr in _leaves(variables.get(coll, {})):
-            name = ".".join(path[:-1] + (_LEAF.get(path[-1], path[-1]),))
-            if name not in targets:
-                raise KeyError(f"flax leaf {coll}/{'/'.join(path)} has no "
-                               f"port tensor {name!r}")
-            if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-            t = targets[name]
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: flax {arr.shape} vs port "
-                                 f"{tuple(t.shape)}")
-            with torch.no_grad():
-                t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
-            filled.add(name)
-    missing = sorted(set(targets) - filled)
-    if missing:
-        raise KeyError(f"{len(missing)} port tensors not filled, e.g. "
-                       f"{missing[:5]}")
+    targets = model.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for coll in COLLECTIONS:
+            for name, arr in torch_tensors(model, variables.get(coll, {}),
+                                           coll).items():
+                targets[name].copy_(torch.tensor(np.ascontiguousarray(arr)))
     return model

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from icafusion_tpu_torch.kernels.cross_attention import (
     dual_cross_attention, dual_cross_attention_reference)
 from icafusion_tpu_torch.kernels.nms import greedy_nms, greedy_nms_reference
@@ -285,3 +287,29 @@ def test_conv_module_launches_the_kernel(dev, dtype):
     with torch.no_grad():
         strided(x.float())
     assert conv3x3_bn_silu.launches == before + 1
+
+
+@pytest.mark.parametrize("fmt", [torch.contiguous_format,
+                                 torch.channels_last])
+def test_pool_gradients_on_ties_are_first_winner(dev, fmt):
+    """SPPF's 5x5/s1 pool and the fusion block's floor-mode pool (10x10/s2)
+    on integer data: the card's autograd sends each window's gradient where
+    the JAX package's VJP does (chip_smoke.first_winner_pool_grad)."""
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(0)
+    for shape, k, s, p in (((2, 8, 20, 20), 5, 1, 2),
+                           ((2, 8, 40, 40), 10, 2, 0)):
+        x = torch.randint(0, 4, shape, generator=gen).float()
+        xc = x.to(dev).contiguous(memory_format=fmt).requires_grad_()
+        y = F.max_pool2d(xc, k, s, p)
+        g = torch.randint(-3, 4, y.shape, generator=gen).float()
+        (y * g.to(dev)).sum().backward()
+        assert torch.equal(xc.grad.double().cpu(),
+                           chip_smoke.first_winner_pool_grad(x, g, k, s, p))
+
+
+def test_train_steps_on_the_card_match_the_cpu(dev):
+    """Three Trainer steps of the tiny model (64 px, batch 2, fp32, dropout
+    off) on the card and on the CPU: chip_smoke.py's phase 6a, whose
+    docstring and constants give the tolerances and why."""
+    chip_smoke.train_card_vs_cpu()

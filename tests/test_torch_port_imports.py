@@ -14,6 +14,9 @@ names = ["icafusion_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     icafusion_tpu_torch.__path__, "icafusion_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+train = ("cli.train", "data.synthetic", "train.autoanchor", "train.ema",
+         "train.fit", "train.loss", "train.optim", "train.trainer")
+assert all("icafusion_tpu_torch." + t in names for t in train), names
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu"))
@@ -27,7 +30,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
-    assert int(n) >= 15, out.stdout      # every module was walked
+    assert int(n) >= 40, out.stdout      # every module was walked
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

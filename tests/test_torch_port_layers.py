@@ -134,11 +134,18 @@ def test_load_jax_variables_is_strict():
 
 
 def test_model_is_inference_only():
+    """The model is built for inference (eval mode, decoded output); since
+    training is ported, train() switches it to Detect's raw maps per level
+    and eval() back."""
     model = assembler.build_model(zoo.tiny_icafusion_config())
     assert not model.training
-    with pytest.raises(NotImplementedError):
-        model.train()
-    model.eval()
+    x = torch.zeros(1, 3, 64, 64)
+    with torch.no_grad():
+        assert model(x, x).shape == (1, 3 * (64 + 16 + 4), 8)
+        raw = model.train()(x, x)
+        assert [tuple(r.shape) for r in raw] == [
+            (1, 8, 8, 3, 8), (1, 4, 4, 3, 8), (1, 2, 2, 3, 8)]
+        assert model.eval()(x, x).shape == (1, 252, 8)
 
 
 def test_build_model_generator_is_deterministic():
