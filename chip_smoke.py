@@ -7,7 +7,7 @@ Phases, each printed with its elapsed seconds; any failure raises, so the
 exit code is non-zero and the final line is never printed:
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions, and
-   which of msgpack, yaml, cv2, PIL and torchvision import;
+   which of msgpack, yaml, cv2, PIL, torchvision and matplotlib import;
 1. the build of the CUDA kernels (one nvcc per source, in parallel) with the
    -Xptxas -v report;
 2. the dual cross-attention kernel against its plain PyTorch version on the
@@ -20,9 +20,10 @@ exit code is non-zero and the final line is never printed:
    padding of 0, -0.5 and -2 in place of -1; ties present: keep and ok must
    be equal. Each case prints its time and kept count;
 3b. the fused conv3x3 + BatchNorm + SiLU kernel (64 channels) against its
-   plain version, at the serving path's shape (4, 64, 160, 160) and six
-   ragged ones, float32 and bfloat16, channels_last (the serving path's
-   layout) and NCHW, timed like phase 2;
+   plain version, at the serving path's shape (4, 64, 160, 160), six
+   ragged ones and the validation path's rect (2, 64, 68, 84) and TTA
+   (2, 64, 56, 56) maps, float32 and bfloat16, channels_last (the serving
+   path's layout) and NCHW, timed like phase 2;
 4. the slice: (a) a tiny model served on the card against the same engine
    on the CPU; (b) ServingEngine on yolov5l-Transfusion at 640, batch 4,
    bfloat16, random weights from torch.Generator().manual_seed(0), three
@@ -43,7 +44,17 @@ exit code is non-zero and the final line is never printed:
    2 warm-up and 10 timed steps, step time, images/s, device busy, idle
    share and peak memory; (c) fit: yolov5n-Transfusion at 320 on the same
    pairs, 2 epochs of batch 16 in bf16 with the EMA evaluated after each,
-   the three kernels launched there, the stripped checkpoint served.
+   the three kernels launched there, the stripped checkpoint served;
+7. validation: the trained yolov5s-Transfusion checkpoint
+   (artifacts/trained_s640) on its 141 held-out extval pairs at 640,
+   batch 16, each run with the three kernels' launches counted: (a)
+   python -m icafusion_tpu_torch.cli.val in fp32 with the MR txts, the
+   COCO json scored against ground truth built from the labels, and the
+   confusion matrix; (b) the Evaluator in bf16; (c) cli.val --rect (one
+   544 x 672 canvas); (d) cli.val --augment, and the TTA predictions of
+   two pairs on the card against the port's CPU run. mAP@50 of (a), (b)
+   and (c) within 0.3 points of the JAX package's records and the
+   reference stack's in TRAINED_PARITY_640.json.
 
 Before the last line it prints one JSON object with each kernel's launches
 on the main path, error, device times (kernel, plain version and library
@@ -78,7 +89,9 @@ CONV_SHAPES = ((4, 64, 160, 160),    # the serving path: first C3 of a tower
                (1, 64, 20, 20), (2, 64, 10, 13), (1, 64, 7, 5),
                (1, 64, 1, 1),       # the halo is all padding
                (3, 64, 161, 33),    # ragged tiles in both directions
-               (1, 64, 8, 16))      # one tile, fewer tiles than SMs
+               (1, 64, 8, 16),      # one tile, fewer tiles than SMs
+               (2, 64, 68, 84),     # rect val at 640: 544 x 672 canvas
+               (2, 64, 56, 56))     # the third TTA pass at 640 (448)
 CONVS_PER_FORWARD = 6                # yolov5l: 3 bottlenecks x 2 towers
 MAP50_GATE = 0.003                   # ACCURACY.md: within 0.3 mAP@50 points
 
@@ -377,7 +390,8 @@ def main() -> int:
     print(f"   torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} numpy {np.__version__}")
     found = {m: importlib.util.find_spec(m) is not None
-             for m in ("msgpack", "yaml", "cv2", "PIL", "torchvision")}
+             for m in ("msgpack", "yaml", "cv2", "PIL", "torchvision",
+                       "matplotlib")}
     print(f"   importable: {found}")
     done(t0)
 
@@ -672,6 +686,9 @@ def main() -> int:
         fit_slice(data_yaml, Path(tmp) / "runs")
         done(t0)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        val_slice(Path(tmp))
+
     kernels = []
     for name, src, tpu in (
             ("dual_cross_attention",
@@ -917,6 +934,150 @@ def fit_slice(data_yaml: Path, project: Path):
         for x in out), [x.shape for x in out]
     print(f"   stripped.ckpt served on the card: detections per image "
           f"{[len(x) for x in out]}")
+
+
+S640 = REPO / "artifacts" / "trained_s640"
+S640_CFG = "yolov5s_Transfusion.yaml"
+VAL_BATCH = 16
+TTA_CANDIDATES = 25200 + 18207 + 12348   # 640, 531 -> 544, 428 -> 448
+
+
+def coco_ground_truth(rgb_dir: Path, out: Path) -> Path:
+    """A COCO ground-truth json of the YOLO labels beside rgb_dir's images
+    (labels/<split>/<stem>.txt): image id = file stem, as the Evaluator's
+    COCO dump names it, category = class, boxes in native pixels."""
+    import cv2
+    gt = {"images": [], "annotations": [],
+          "categories": [{"id": c} for c in range(3)]}
+    for img in sorted(rgb_dir.glob("*.jpg")):
+        h, w = cv2.imread(str(img)).shape[:2]
+        gt["images"].append({"id": img.stem})
+        lab = rgb_dir.parents[1] / "labels" / rgb_dir.name / f"{img.stem}.txt"
+        for c, cx, cy, bw, bh in np.loadtxt(lab, ndmin=2):
+            box = [float((cx - bw / 2) * w), float((cy - bh / 2) * h),
+                   float(bw * w), float(bh * h)]
+            gt["annotations"].append({
+                "id": len(gt["annotations"]) + 1, "image_id": img.stem,
+                "category_id": int(c), "bbox": box,
+                "area": box[2] * box[3], "iscrowd": 0})
+    out.write_text(json.dumps(gt))
+    return out
+
+
+def val_slice(work: Path):
+    """Phase 7: the validation path on trained yolov5s-Transfusion weights
+    and the 141 extval pairs at 640, each run with the launches of the three
+    wrappers counted from zero; mAP@50 held to TRAINED_PARITY_640.json."""
+    from icafusion_tpu_torch.cli import val as cli_val
+    from icafusion_tpu_torch.cli._common import load_model_for_inference
+    from icafusion_tpu_torch.data.datasets import PairedDetectionDataset
+    from icafusion_tpu_torch.data.loader import PairedLoader
+    from icafusion_tpu_torch.eval.evaluator import Evaluator
+    from icafusion_tpu_torch.kernels.cross_attention import dual_cross_attention
+    from icafusion_tpu_torch.kernels.nms import greedy_nms
+    from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
+    from icafusion_tpu_torch.models.tta import tta_inference
+    wrappers = (dual_cross_attention, greedy_nms, conv3x3_bn_silu)
+
+    def counted(fn):
+        """fn() with every launch count set to 0 just before it; (its
+        result, the launches it made)."""
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        return out, {w.__name__: w.launches for w in wrappers}
+
+    rec = json.loads((REPO / "TRAINED_PARITY_640.json").read_text())
+    jax_rec = {k: rec["ours"][k]["ref_scored"]["map50"]
+               for k in ("fp32", "bf16", "fp32+rect")}
+    ref_rec = {"fp32": rec["torch"]["map50"],
+               "fp32+rect": rec["torch_rect"]["map50"]}
+    ext = S640 / "extval"
+    data = work / "extval.yaml"
+    data.write_text(f"path: {ext}\nval_rgb: visible/val\n"
+                    "val_ir: infrared/val\nnc: 3\n"
+                    "names: ['red', 'green', 'blue']\n")
+    coco_gt = coco_ground_truth(ext / "visible" / "val", work / "gt.json")
+    base = ["--weights", str(S640 / "stripped.ckpt"), "--cfg", S640_CFG,
+            "--data", str(data), "--img-size", "640",
+            "--batch-size", str(VAL_BATCH)]
+
+    def report(tag, r, launches, records):
+        deltas = ", ".join(f"{k} record {v:.5f} (delta "
+                           f"{100 * (r['map50'] - v):+.3f} pts)"
+                           for k, v in records.items()) or "no record"
+        print(f"   {tag}: mAP@50 {r['map50']:.5f} mAP {r['map']:.5f} P "
+              f"{r['mp']:.5f} R {r['mr']:.5f} over {r['seen']} pairs; "
+              f"{deltas}; {r['t_total_ms']:.2f} ms per image; launches "
+              f"{launches}")
+        assert r["seen"] == rec["n_images"], r["seen"]
+        assert all(launches.values()), launches
+        for v in records.values():
+            assert abs(r["map50"] - v) <= MAP50_GATE, (tag, r["map50"], v)
+
+    t0 = phase("7a cli.val s640 fp32: --save-txt --save-json --confusion "
+               "--coco-gt")
+    out_dir = work / "7a"
+    r, launches = counted(lambda: cli_val.main(base + [
+        "--save-dir", str(out_dir), "--save-txt", "--save-json",
+        "--confusion", "--coco-gt", str(coco_gt)]))
+    report("fp32", r, launches, {"JAX fp32": jax_rec["fp32"],
+                                 "reference stack": ref_rec["fp32"]})
+    lines = (out_dir / "labels" / "result.txt").read_text().splitlines()
+    per_image = sum(len(p.read_text().splitlines())
+                    for p in (out_dir / "labels").glob("i*.txt"))
+    dets = json.loads((out_dir / "detections.json").read_text())
+    print(f"   COCO AP {r['coco_map']:.5f} AP50 {r['coco_map50']:.5f}; "
+          f"result.txt {len(lines)} lines, per-image txts {per_image}, "
+          f"detections.json {len(dets)}; confusion matrix "
+          f"{r['cm'].tolist()}")
+    assert len(lines) == per_image == len(dets) > 0
+    assert 0 < r["coco_map"] <= r["coco_map50"] <= 1
+    done(t0)
+
+    t0 = phase("7b Evaluator s640 bf16")
+    _, model = load_model_for_inference(S640_CFG, str(S640 / "stripped.ckpt"),
+                                        nc=3)
+    ds = PairedDetectionDataset(str(ext / "visible" / "val"),
+                                str(ext / "infrared" / "val"), 640, nc=3)
+    ev = Evaluator(model, nc=3, dtype="bfloat16")
+    r, launches = counted(lambda: ev.run(
+        PairedLoader(ds, VAL_BATCH).val_batches(), 640))
+    report("bf16", r, launches, {"JAX bf16": jax_rec["bf16"]})
+    del ev
+    done(t0)
+
+    t0 = phase("7c cli.val s640 fp32 --rect")
+    canvases = {ds.rect_val_canvas(i) for i in range(len(ds))}
+    print(f"   rect canvases {sorted(canvases)}")
+    assert canvases == {(544, 672)}, canvases
+    r, launches = counted(lambda: cli_val.main(base + [
+        "--save-dir", str(work / "7c"), "--rect"]))
+    report("fp32 rect", r, launches,
+           {"JAX fp32+rect": jax_rec["fp32+rect"],
+            "reference stack rect": ref_rec["fp32+rect"]})
+    done(t0)
+
+    t0 = phase("7d cli.val s640 fp32 --augment (not gated)")
+    r, launches = counted(lambda: cli_val.main(base + [
+        "--save-dir", str(work / "7d"), "--augment"]))
+    report("fp32 TTA", r, launches, {})
+    batch = next(iter(PairedLoader(ds, 2).val_batches()))
+    card = copy.deepcopy(model).cuda()
+    with torch.inference_mode():
+        pred = {}
+        for dev, m in (("cuda", card), ("cpu", model)):
+            x, y = (torch.from_numpy(batch[k]).to(dev).permute(0, 3, 1, 2)
+                    .float() / 255.0 for k in ("rgb", "ir"))
+            pred[dev] = tta_inference(m, x, y).cpu()
+    d = (pred["cuda"] - pred["cpu"]).abs()
+    box_err, conf_err = d[..., :4].max().item(), d[..., 4:].max().item()
+    print(f"   TTA predictions of 2 pairs, card against CPU: "
+          f"{tuple(pred['cuda'].shape)}, max |box| {box_err:.3g} px "
+          f"(tolerance 1e-2), max |conf| {conf_err:.3g} (1e-4)")
+    assert pred["cuda"].shape == (2, TTA_CANDIDATES, 8)
+    assert box_err <= 1e-2 and conf_err <= 1e-4, (box_err, conf_err)
+    done(t0)
 
 
 if __name__ == "__main__":

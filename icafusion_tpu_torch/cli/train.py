@@ -77,9 +77,13 @@ def parse_args(argv=None):
                     help="evaluate on the final epoch only")
     ap.add_argument("--results-format", default="native",
                     choices=["native", "reference"],
-                    help="results.csv layout ('reference' is not ported)")
+                    help="results.csv layout: 'native' (11 columns) or "
+                         "'reference' (the reference's 29-key row, val "
+                         "losses and MR columns included)")
     ap.add_argument("--kaist-ann", default=None, metavar="JSON",
-                    help="KAIST MR columns (not ported)")
+                    help="KAIST annotation json: the MR submission txts "
+                         "each evaluation and the MR columns of the "
+                         "reference row")
     return ap.parse_args(argv)
 
 
@@ -92,26 +96,12 @@ def resolve_accum(accum, batch_size: int, nbs: int = 64) -> int:
     return max(int(accum), 1)
 
 
-def resolve_model_config(spec: str, nc=None):
-    """A model YAML (path or preset name), or 'zoo:tfb:<scale>' /
-    'zoo:tiny[:tfb]'."""
-    from icafusion_tpu_torch.config import load_model_config
-    from icafusion_tpu_torch.models import zoo
-    if not spec.startswith("zoo:"):
-        return load_model_config(spec, nc=nc)
-    parts = spec.split(":")[1:]
-    if parts[0] == "tiny":
-        return zoo.tiny_icafusion_config(
-            nc=nc or 3, fusion=parts[1] if len(parts) > 1 else "tfb")
-    return zoo.icafusion_config(parts[1] if len(parts) > 1 else "l",
-                                nc=nc or 3, fusion=parts[0])
-
-
 def main(argv=None):
     args = parse_args(argv)
+    from icafusion_tpu_torch.cli._common import resolve_model_config
     from icafusion_tpu_torch.config import load_data_config, load_hyp_config
-    from icafusion_tpu_torch.train.fit import FitConfig, fit, not_ported
-    from icafusion_tpu_torch.utils.general import check_img_size
+    from icafusion_tpu_torch.train.fit import FitConfig, fit
+    from icafusion_tpu_torch.utils.general import check_img_size, not_ported
 
     if args.evolve:
         not_ported("--evolve", "A10")

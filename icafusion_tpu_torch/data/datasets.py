@@ -9,8 +9,10 @@ validated as the reference's cache_labels validates it; with a cache_dir
 the parsed labels are kept in one .npz keyed by a hash of the paths and
 their mtimes. Train samples: mosaic (probability hyp.mosaic) or letterbox,
 HSV jitter per modality, paired flips on one coin (datasets.py:948-1024).
-Val samples: a square letterbox, scaleup=False. Images are decoded with
-cv2, imported when an image is read.
+Val samples: a letterbox, scaleup=False, on the img_size square or on the
+reference's rect pad-0.5 canvas of the image (rect_val_canvas). Images
+are decoded with cv2, imported when an image is read; rect_val_canvas
+reads image headers with PIL, imported there.
 """
 
 from __future__ import annotations
@@ -237,3 +239,29 @@ class PairedDetectionDataset:
         shapes = ((h0, w0), ((h / h0 * ratio[0], w / w0 * ratio[1]), pad))
         return (np.ascontiguousarray(rgb), np.ascontiguousarray(ir),
                 self.labels[index].copy(), shapes)
+
+    def image_shapes(self) -> np.ndarray:
+        """(n, 2) native (h0, w0) of each RGB image, from its header (PIL),
+        read once."""
+        if getattr(self, "_image_shapes", None) is None:
+            from PIL import Image
+            shapes = np.empty((len(self.files_rgb), 2), np.int64)
+            for i, p in enumerate(self.files_rgb):
+                with Image.open(p) as im:
+                    w0, h0 = im.size
+                shapes[i] = (h0, w0)
+            self._image_shapes = shapes
+        return self._image_shapes
+
+    def rect_val_canvas(self, index: int, stride: int = 32,
+                        pad: float = 0.5) -> Tuple[int, int]:
+        """The reference's rect-val canvas (h, w) of one image
+        (datasets.py:826-872 at its eval geometry): the aspect ratio with
+        the longer side 1, times img_size, over stride plus pad, rounded up,
+        times stride."""
+        h0, w0 = self.image_shapes()[index]
+        ar = h0 / w0
+        shape = [ar, 1.0] if ar < 1 else [1.0, 1.0 / ar]
+        canvas = np.ceil(np.array(shape) * self.img_size / stride
+                         + pad).astype(int) * stride
+        return int(canvas[0]), int(canvas[1])

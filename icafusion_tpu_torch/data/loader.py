@@ -1,5 +1,6 @@
 """Fixed-shape batches of a PairedDetectionDataset (the JAX package's
-data/loader.py, cv2 decoding only).
+data/loader.py, cv2 decoding only): train batches, val batches on the
+img_size square, and rect val batches grouped by canvas.
 
 Train batches: images (B, S, S, 3) uint8 and targets padded to (B, T, 5)
 with a (B, T) mask, so no shape depends on the data. A thread pool decodes
@@ -144,3 +145,34 @@ class PairedLoader:
                 shapes.append(shp)
             yield {"rgb": rgb, "ir": ir, "labels": labels, "shapes": shapes,
                    "count": count, "paths": [ds.files_rgb[i] for i in idx]}
+
+    def rect_val_batches(self, stride: int = 32,
+                         pad: float = 0.5) -> Iterator[dict]:
+        """Batches on the reference's rect pad-0.5 canvases (its val
+        protocol, test.py:100): each image gets its own canvas
+        (rect_val_canvas, the reference's geometry at batch 1) and images
+        are grouped by canvas, so every batch has one shape; a set of one
+        aspect ratio makes one group. Within a group, dataset order; the
+        last batch of a group is padded as in val_batches, whose keys these
+        batches have."""
+        ds, B = self.dataset, self.batch_size
+        groups: dict = {}
+        for i in range(len(ds)):
+            groups.setdefault(ds.rect_val_canvas(i, stride, pad),
+                              []).append(i)
+        for (hh, ww), members in groups.items():
+            for start in range(0, len(members), B):
+                idx = members[start:start + B]
+                count = len(idx)
+                idx += [idx[-1]] * (B - count)
+                rgb = np.empty((B, hh, ww, 3), np.uint8)
+                ir = np.empty((B, hh, ww, 3), np.uint8)
+                labels, shapes = [], []
+                for slot, i in enumerate(idx):
+                    rgb[slot], ir[slot], lab, shp = ds.val_sample(
+                        i, canvas=(hh, ww))
+                    labels.append(lab)
+                    shapes.append(shp)
+                yield {"rgb": rgb, "ir": ir, "labels": labels,
+                       "shapes": shapes, "count": count,
+                       "paths": [ds.files_rgb[i] for i in idx]}

@@ -1,7 +1,7 @@
 """Detection metrics (host-side numpy): PR curves, AP, confusion matrix, fitness.
 
-A copy of the JAX package's eval/metrics.py, names kept, without the curve
-plots.
+A copy of the JAX package's eval/metrics.py, names kept; the curve plots
+import utils/plots (matplotlib) only when a plot_dir is given.
 
 Behavioral counterpart of reference utils/metrics.py:12-185:
 - ap_per_class: per-class PR curves sampled on a 1000-point confidence grid,
@@ -49,13 +49,14 @@ def compute_ap(recall, precision):
     return ap, pre[:, 0], rec[:, 0]
 
 
-def ap_per_class(tp, conf, pred_cls, target_cls):
+def ap_per_class(tp, conf, pred_cls, target_cls, plot_dir=None, names=()):
     """Per-class AP over the IoU grid; same outputs as reference metrics.py:18-82.
 
     tp: (n, niou) bool; conf, pred_cls: (n,); target_cls: (m,).
     Returns (tp_count, fp_count, fn_count, p, r, ap, f1, unique_classes) where
     p/r/f1 are at the max-mean-F1 confidence threshold and ap is (nc, niou).
-    The curves are not plotted."""
+    With plot_dir set, also writes PR/F1/P/R curve pngs there (the reference's
+    plot=True path, metrics.py:190-227)."""
     tp, conf = np.asarray(tp), np.asarray(conf)
     pred_cls, target_cls = np.asarray(pred_cls), np.asarray(target_cls)
     niou = tp.shape[1] if tp.ndim == 2 else 1
@@ -68,6 +69,7 @@ def ap_per_class(tp, conf, pred_cls, target_cls):
     ap = np.zeros((len(classes), niou))
     p_curve = np.zeros((len(classes), CONF_GRID.size))
     r_curve = np.zeros((len(classes), CONF_GRID.size))
+    pr_plot = []
     for ci, (c, n_gt) in enumerate(zip(classes, gt_counts)):
         sel = pred_cls == c
         if n_gt == 0 or not sel.any():
@@ -84,6 +86,7 @@ def ap_per_class(tp, conf, pred_cls, target_cls):
         for j in range(niou):
             ap[ci, j] = np.trapezoid(
                 np.interp(RECALL_GRID, rec_pad[:, j], pre_env[:, j]), RECALL_GRID)
+        pr_plot.append(np.interp(CONF_GRID, rec_pad[:, 0], pre_env[:, 0]))
 
     f1_curve = 2 * p_curve * r_curve / (p_curve + r_curve + 1e-16)
     best = f1_curve.mean(0).argmax()                      # max mean-F1 threshold
@@ -94,14 +97,29 @@ def ap_per_class(tp, conf, pred_cls, target_cls):
     fn_cnt = n_last - tp_cnt
     fp_cnt = (tp_cnt / (p_curve + 1e-16) - tp_cnt).round()
 
+    if plot_dir is not None and pr_plot:
+        from pathlib import Path
+
+        from icafusion_tpu_torch.utils.plots import plot_mc_curve, plot_pr_curve
+        d = Path(plot_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        plot_pr_curve(CONF_GRID, np.stack(pr_plot, 1), ap, d / "PR_curve.png",
+                      names)
+        plot_mc_curve(CONF_GRID, f1_curve, d / "F1_curve.png", names, ylabel="F1")
+        plot_mc_curve(CONF_GRID, p_curve, d / "P_curve.png", names,
+                      ylabel="Precision")
+        plot_mc_curve(CONF_GRID, r_curve, d / "R_curve.png", names,
+                      ylabel="Recall")
+
     return (tp_cnt[:, best], fp_cnt[:, best], fn_cnt[:, best], p_curve[:, best],
             r_curve[:, best], ap, f1_curve[:, best], classes.astype(np.int32))
 
 
-def summarize(stats, nc: int):
+def summarize(stats, nc: int, plot_dir=None, names=()):
     """Aggregate per-image stats -> dict of headline metrics (test.py:288-312).
 
-    stats: list of (correct (n,niou) bool, conf (n,), pred_cls (n,), tcls list)."""
+    stats: list of (correct (n,niou) bool, conf (n,), pred_cls (n,), tcls list).
+    plot_dir: also emit PR/F1/P/R curve pngs (reference plot=True path)."""
     out = dict(mp=0.0, mr=0.0, map50=0.0, map75=0.0, map=0.0,
                tp=0.0, fp=0.0, fn=0.0, f1=0.0,
                per_class={}, nt=np.zeros(nc, np.int64))
@@ -112,7 +130,7 @@ def summarize(stats, nc: int):
     if not len(arrs[0]):
         return out
     tp_c, fp_c, fn_c, p, r, ap, f1, classes = ap_per_class(
-        arrs[0], arrs[1], arrs[2], tcls)
+        arrs[0], arrs[1], arrs[2], tcls, plot_dir=plot_dir, names=names)
     ap50, ap75, ap_mean = ap[:, 0], ap[:, 5], ap.mean(1)
     out.update(mp=float(p.mean()), mr=float(r.mean()), map50=float(ap50.mean()),
                map75=float(ap75.mean()), map=float(ap_mean.mean()))

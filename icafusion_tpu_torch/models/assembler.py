@@ -124,8 +124,8 @@ def resolve_model(cfg: ModelConfig) -> Tuple[Tuple[ResolvedLayer, ...],
 class ICAFusionModel(nn.Module):
     """The two-stream detector: forward(rgb, ir) with NCHW float images
     returns, in eval mode, the decoded predictions (B, N, 5 + nc) in
-    float32 and, in train mode, Detect's raw maps per level. It is built in
-    eval mode."""
+    float32 (with raw=True, and Detect's raw maps) and, in train mode,
+    Detect's raw maps per level. It is built in eval mode."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -152,10 +152,13 @@ class ICAFusionModel(nn.Module):
                 p.data = p.data.to(dtype)
         return self
 
-    def forward(self, x, x2=None):
+    def forward(self, x, x2=None, raw: bool = False):
+        """raw (eval mode): return (decoded predictions, Detect's raw maps
+        per level), for a loss on the same forward."""
         y: Dict[int, Any] = {}
         out = x
         x2 = x if x2 is None else x2
+        last = self.resolved[-1].i
         for r in self.resolved:
             if r.f == -4:
                 inp = x2
@@ -165,7 +168,8 @@ class ICAFusionModel(nn.Module):
                 inp = y[r.f]
             else:
                 inp = [out if j == -1 else y[j] for j in r.f]
-            out = getattr(self, f"m{r.i}")(inp)
+            m = getattr(self, f"m{r.i}")
+            out = m(inp, raw=True) if raw and r.i == last else m(inp)
             if r.i in self.save:
                 y[r.i] = out
         return out

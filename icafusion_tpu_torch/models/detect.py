@@ -4,7 +4,8 @@ Counterpart of the JAX package's models/detect.py (reference
 models/yolo_test.py:26-70): a 1x1 conv per level to na * (nc + 5) channels.
 In train mode it returns those raw maps, one (B, ny, nx, na, 5 + nc) tensor
 per level, for the loss (the JAX ``decode=False``); in eval mode it decodes
-them, in float32,
+them, in float32, and returns the raw maps beside on request (the val
+loss),
 
     xy = (sigmoid(t_xy) * 2 - 0.5 + grid) * stride
     wh = (sigmoid(t_wh) * 2) ** 2 * anchor_pixels
@@ -56,27 +57,27 @@ class Detect(nn.Module):
         for i, c in enumerate(ch):
             self.add_module(f"m{i}", nn.Conv2d(c, self.no * self.na, 1))
 
-    def forward(self, xs: List[torch.Tensor]):
+    def forward(self, xs: List[torch.Tensor], raw: bool = False):
         """Eval mode: decoded predictions (B, sum ny*nx*na, 5 + nc), float32:
-        xywh in input pixels, objectness, class scores. Train mode: the raw
-        maps per level, (B, ny, nx, na, 5 + nc) in the activation dtype."""
-        if self.training:
-            raw = []
-            for i, x in enumerate(xs):
-                t = getattr(self, f"m{i}")(x)
-                b, _, ny, nx = t.shape
-                raw.append(t.reshape(b, self.na, self.no, ny, nx)
-                           .permute(0, 3, 4, 1, 2))
-            return raw
-        z = []
+        xywh in input pixels, objectness, class scores; with raw, the pair
+        (decoded, raw maps), as the JAX ``decode=True`` returns both. Train
+        mode: the raw maps per level, (B, ny, nx, na, 5 + nc) in the
+        activation dtype."""
+        maps = []
         for i, x in enumerate(xs):
             t = getattr(self, f"m{i}")(x)
             b, _, ny, nx = t.shape
-            y = (t.float().view(b, self.na, self.no, ny, nx)
-                 .permute(0, 3, 4, 1, 2).sigmoid())        # (b, ny, nx, na, no)
+            maps.append(t.view(b, self.na, self.no, ny, nx)
+                        .permute(0, 3, 4, 1, 2))      # (b, ny, nx, na, no)
+        if self.training:
+            return maps
+        z = []
+        for i, m in enumerate(maps):
+            b, ny, nx = m.shape[:3]
+            y = m.float().sigmoid()
             gy, gx = torch.meshgrid(
-                torch.arange(ny, device=t.device, dtype=torch.float32),
-                torch.arange(nx, device=t.device, dtype=torch.float32),
+                torch.arange(ny, device=m.device, dtype=torch.float32),
+                torch.arange(nx, device=m.device, dtype=torch.float32),
                 indexing="ij")
             grid = torch.stack([gx, gy], dim=-1)[:, :, None, :]
             anc = self.anchors_px[i]
@@ -84,4 +85,5 @@ class Detect(nn.Module):
             wh = (y[..., 2:4] * 2.0) ** 2 * anc
             out = torch.cat([xy, wh, y[..., 4:]], dim=-1)
             z.append(out.reshape(b, ny * nx * self.na, self.no))
-        return torch.cat(z, dim=1)
+        pred = torch.cat(z, dim=1)
+        return (pred, maps) if raw else pred

@@ -7,18 +7,24 @@ evaluation of the EMA weights by the Evaluator (the port's three CUDA
 kernels) -> results.csv -> last/best checkpoints in the JAX package's
 format -> the stripped EMA checkpoint.
 
+results.csv is the native 11-column row or the reference's 29-key row
+(results_format="reference": val losses from the Evaluator's loss_fn on the
+same eval forward); with kaist_ann each evaluation writes the MR txts and
+the reference row gets the KAIST miss rates. The last evaluation draws the
+PR/F1/P/R curves, and the run ends with results.png and the confusion
+matrix, where matplotlib imports (else the plots are skipped and logged).
+
 Not ported, and refused with the ROADMAP item named: distributed and
-multi-device training, stream-merged training, KAIST MR columns, the
-reference-format results.csv (it needs the Evaluator's val loss), a
-reference .pt as pretrained weights. The label, batch and results plots and
-the TensorBoard facade of the JAX fit are left out (they never gate a
-run there either).
+multi-device training, stream-merged training, a reference .pt as
+pretrained weights. The label and batch plots and the TensorBoard facade
+of the JAX fit are left out (they never gate a run there either).
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import importlib.util
 import json
 import sys
 import time
@@ -33,6 +39,7 @@ from icafusion_tpu_torch.config import (DataConfig, HypConfig, ModelConfig,
 from icafusion_tpu_torch.data.datasets import PairedDetectionDataset
 from icafusion_tpu_torch.data.loader import PairedLoader
 from icafusion_tpu_torch.eval.evaluator import Evaluator
+from icafusion_tpu_torch.eval.kaist import evaluate_kaist
 from icafusion_tpu_torch.eval.metrics import fitness
 from icafusion_tpu_torch.models.assembler import (ICAFusionModel, build_model,
                                                   init_weights)
@@ -44,17 +51,25 @@ from icafusion_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   strip_checkpoint,
                                                   wait_pending_saves)
 from icafusion_tpu_torch.utils.convert import load_jax_variables
+from icafusion_tpu_torch.utils.plots import plot_confusion_matrix, plot_results
 from icafusion_tpu_torch.utils.general import (increment_path,
                                                labels_to_class_weights,
-                                               resolve_device)
+                                               not_ported, resolve_device)
 
 RESULTS_HEADER = ["epoch", "lbox", "lobj", "lcls", "P", "R", "mAP50", "mAP",
                   "fitness", "lr", "time_s"]
+# The reference's 29-key row (train.py:398-411), which its plot_results
+# reads (plots.py:457-480); results_format="reference". The MR columns are
+# zeros unless kaist_ann is set.
+REFERENCE_RESULTS_KEYS = [
+    "train/box_loss", "train/obj_loss", "train/cls_loss", "train/rank_loss",
+    "TP", "FP", "FN", "F1", "metrics/precision", "metrics/recall",
+    "metrics/mAP_0.5", "metrics/mAP_0.5:0.95",
+    "val/box_loss", "val/obj_loss", "val/cls_loss", "val/rank_loss",
+    "x/lr0", "x/lr1", "x/lr2",
+    "MR_all", "MR_day", "MR_night", "MR_near", "MR_medium", "MR_far",
+    "MR_none", "MR_partial", "MR_heavy", "Recall_all"]
 MULTI_SCALES = (0.75, 0.875, 1.0, 1.125, 1.25)   # train.py:325-331 buckets
-
-
-def not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
 
 
 def viable_train_scales(cfg: ModelConfig, h: int, w: int, scales, log):
@@ -132,8 +147,8 @@ class FitConfig:
     single_cls: bool = False
     nosave: bool = False                 # checkpoints on the final epoch only
     notest: bool = False                 # evaluation on the final epoch only
-    results_format: str = "native"       # "reference": A2
-    kaist_ann: Optional[str] = None      # A2
+    results_format: str = "native"       # or "reference", the 29-key row
+    kaist_ann: Optional[str] = None      # KAIST annotation json: MR columns
     device: Optional[str] = None         # None: CUDA, raising without it
 
 
@@ -144,10 +159,9 @@ def _check_ported(cfg: FitConfig):
         not_ported("n_devices > 1", "A8")
     if cfg.merge_streams:
         not_ported("merge_streams", "A10")
-    if cfg.kaist_ann:
-        not_ported("kaist_ann", "A2")
-    if cfg.results_format != "native":
-        not_ported(f"results_format={cfg.results_format!r}", "A2")
+    if cfg.results_format not in ("native", "reference"):
+        raise ValueError(f"results_format {cfg.results_format!r}: 'native' "
+                         "or 'reference'")
     if cfg.pretrained and not cfg.pretrained.endswith(".ckpt"):
         not_ported("a reference .pt as pretrained weights", "A10")
 
@@ -273,10 +287,18 @@ def fit(cfg: FitConfig) -> dict:
     steps = {s: trainer.make_train_step(scale=s) for s in scales}
     scale_rng = np.random.default_rng(cfg.seed + 1)
 
+    ref_csv = cfg.results_format == "reference"
+    names = list(cfg.data_cfg.names or [])
+    can_plot = importlib.util.find_spec("matplotlib") is not None
+    if not can_plot:
+        log("matplotlib is not installed: the plots are skipped")
     results_csv = run_dir / "results.csv"
     if not results_csv.exists():
         with open(results_csv, "w", newline="") as f:
-            csv.writer(f).writerow(RESULTS_HEADER)
+            if ref_csv:     # the reference's header (train.py:407-409)
+                f.write(",".join(["epoch"] + REFERENCE_RESULTS_KEYS) + "\n")
+            else:
+                csv.writer(f).writerow(RESULTS_HEADER)
 
     def put(b):
         """Upload a batch; uint8 images become float in [0, 1] on the
@@ -313,15 +335,31 @@ def fit(cfg: FitConfig) -> dict:
         lr_now = float(metrics["lr"])
 
         ev = {"mp": 0.0, "mr": 0.0, "map50": 0.0, "map": 0.0}
+        mr_vals = [0.0] * 10
         last_epoch = epoch == cfg.epochs - 1
         if ((epoch + 1) % cfg.eval_every == 0 and not cfg.notest) \
                 or last_epoch:
             evaluator = Evaluator(ema_model(trainer), nc=nc,
                                   single_cls=cfg.single_cls,
+                                  loss_fn=trainer.loss_fn if ref_csv else None,
+                                  max_targets=cfg.max_targets,
                                   dtype="bfloat16" if cfg.bf16 else "float32",
                                   device=device)
-            ev = evaluator.run(val_loader.val_batches(), cfg.imgsz,
-                               confusion=last_epoch)
+            ev = evaluator.run(
+                val_loader.val_batches(), cfg.imgsz, confusion=last_epoch,
+                names=names,
+                mr_txt_dir=str(run_dir / "mr_txt") if cfg.kaist_ann else None,
+                plots_dir=str(run_dir) if last_epoch and can_plot else None)
+            if cfg.kaist_ann:
+                # the MR columns the reference reserves (train.py:398-411)
+                try:
+                    kr = evaluate_kaist(cfg.kaist_ann, str(
+                        run_dir / "mr_txt" / "result.txt"))
+                    mr_vals = [kr.MR_all, kr.MR_day, kr.MR_night, kr.MR_near,
+                               kr.MR_medium, kr.MR_far, kr.MR_none,
+                               kr.MR_partial, kr.MR_heavy, kr.recall_all]
+                except Exception as e:
+                    log(f"KAIST MR eval failed: {e}")
             fit_val = fitness(np.array([0, 0, 0, 0, ev["mp"], ev["mr"],
                                         ev["map50"], ev["map"]]))
             if fit_val > best_fit:
@@ -335,11 +373,20 @@ def fit(cfg: FitConfig) -> dict:
                             background=True)
         dt = time.time() - t0
         with open(results_csv, "a", newline="") as f:
-            csv.writer(f).writerow(
-                [epoch, *[f"{x:.5f}" for x in means[:3]],
-                 f"{ev['mp']:.5f}", f"{ev['mr']:.5f}", f"{ev['map50']:.5f}",
-                 f"{ev['map']:.5f}", f"{best_fit:.5f}", f"{lr_now:.6f}",
-                 f"{dt:.1f}"])
+            if ref_csv:
+                vals = [*means[:3], 0.0,                     # train losses
+                        ev.get("tp", 0.0), ev.get("fp", 0.0),
+                        ev.get("fn", 0.0), ev.get("f1", 0.0),
+                        ev["mp"], ev["mr"], ev["map50"], ev["map"],
+                        *ev.get("val_loss_items", [0.0] * 4),
+                        lr_now, lr_now, lr_now, *mr_vals]
+                f.write(",".join(f"{v:g}" for v in [epoch] + vals) + "\n")
+            else:
+                csv.writer(f).writerow(
+                    [epoch, *[f"{x:.5f}" for x in means[:3]],
+                     f"{ev['mp']:.5f}", f"{ev['mr']:.5f}",
+                     f"{ev['map50']:.5f}", f"{ev['map']:.5f}",
+                     f"{best_fit:.5f}", f"{lr_now:.6f}", f"{dt:.1f}"])
         log(f"epoch {epoch}/{cfg.epochs - 1}: loss={means[3]:.4f} "
             f"mAP50={ev['map50']:.4f} best={best_fit:.4f} ({dt:.0f}s)")
         final = ev
@@ -348,6 +395,14 @@ def fit(cfg: FitConfig) -> dict:
     best = wdir / "best.ckpt"
     strip_checkpoint(best if best.exists() else wdir / "last.ckpt",
                      wdir / "stripped.ckpt")
+    if can_plot:
+        try:   # results.png and the confusion matrix (plots.py:457)
+            plot_results(results_csv)
+            if isinstance(final.get("cm"), np.ndarray):
+                plot_confusion_matrix(final["cm"], names,
+                                      run_dir / "confusion_matrix.png")
+        except Exception as e:
+            log(f"final plots failed: {e}")
     final.pop("cm", None)
     final["best_fitness"] = best_fit
     final["run_dir"] = str(run_dir)

@@ -22,6 +22,12 @@ def resolve_device(device, who: str) -> torch.device:
     return dev
 
 
+def not_ported(what: str, item: str):
+    """Raise for a path of the JAX package that the port does not have yet,
+    naming the ROADMAP item that holds it."""
+    raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
+
+
 def make_divisible(x: float, divisor: int = 8) -> int:
     """Round a channel count up to the nearest multiple of ``divisor``
     (math.ceil(x / divisor) * divisor, as the width-multiple scaling uses)."""

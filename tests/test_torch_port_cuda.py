@@ -228,6 +228,8 @@ def _conv_args(shape, dtype, layout, dev, seed=0):
     (1, 64, 1, 1),        # the halo is all padding
     (3, 64, 161, 33),     # ragged tiles in both directions
     (1, 64, 8, 16),       # one tile, fewer tiles than SMs
+    (2, 64, 68, 84),      # rect val at 640 (544 x 672): 84 = 5 tiles + 4
+    (2, 64, 56, 56),      # the third TTA pass at 640 (448 x 448)
     (4, 64, 160, 160)])   # the serving shape: several tiles per SM
 @pytest.mark.parametrize("layout", [torch.channels_last,
                                     torch.contiguous_format])

@@ -3,6 +3,7 @@ reader, the val data path, the metrics and the Evaluator, on the trained
 yolov5n-Transfusion checkpoint and its 77 val pairs (artifacts/trained_n320).
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -232,20 +233,43 @@ def _capture_stats(monkeypatch, module):
     return seen
 
 
-def test_evaluator_matches_jax(n320, monkeypatch):
+def _losses(cfg, jcfg):
+    """The port's and the JAX package's YoloLoss for the n320 config."""
+    from icafusion_tpu.config import load_hyp_config as jax_hyp
+    from icafusion_tpu.models.assembler import (
+        anchors_grid_units as jax_anchors)
+    from icafusion_tpu.train.loss import YoloLoss as JaxYoloLoss
+    from icafusion_tpu_torch.config import load_hyp_config
+    from icafusion_tpu_torch.models.assembler import anchors_grid_units
+    from icafusion_tpu_torch.train.loss import YoloLoss
+    return (YoloLoss(hyp=load_hyp_config(), nc=3,
+                     anchors=anchors_grid_units(cfg)),
+            JaxYoloLoss(hyp=jax_hyp(), nc=3, anchors=jax_anchors(jcfg)))
+
+
+def test_evaluator_matches_jax(n320, monkeypatch, tmp_path):
     """The port's Evaluator (CPU, fp32) and the JAX Evaluator on the first
-    8 val pairs: equal stats rows (matches, classes, targets; confidences
-    within fp32 summation noise) and equal headline metrics."""
+    8 val pairs, each with its package's YoloLoss and both dumps: equal
+    stats rows (matches, classes, targets; confidences within fp32
+    summation noise), equal headline metrics, val loss items within rtol
+    1e-4, the same MR lines and the same COCO entries (numbers within 1e-4
+    relative)."""
     ours_stats = _capture_stats(monkeypatch, evaluator)
     jax_stats = _capture_stats(monkeypatch, jax_evaluator)
     ours, theirs = _datasets(8)
-    got = evaluator.Evaluator(n320, nc=3, device="cpu").run(
-        PairedLoader(ours, 4).val_batches(), 320, confusion=True)
-    jev = jax_evaluator.Evaluator(
-        model=jax_build_model(jax_zoo.icafusion_config("n", nc=3)), nc=3)
+    jcfg = jax_zoo.icafusion_config("n", nc=3)
+    loss, jloss = _losses(icafusion_config("n", nc=3), jcfg)
+    got = evaluator.Evaluator(n320, nc=3, loss_fn=loss, device="cpu").run(
+        PairedLoader(ours, 4).val_batches(), 320, confusion=True,
+        mr_txt_dir=str(tmp_path / "ours"),
+        coco_json=str(tmp_path / "ours.json"))
+    jev = jax_evaluator.Evaluator(model=jax_build_model(jcfg), nc=3,
+                                  loss_fn=jloss)
     want = jev.run(jax_checkpoint.load_inference_variables(str(CKPT)),
                    JaxPairedLoader(theirs, 4, shuffle=False)
-                   .val_batches(use_native=False), 320, confusion=True)
+                   .val_batches(use_native=False), 320, confusion=True,
+                   mr_txt_dir=str(tmp_path / "jax"),
+                   coco_json=str(tmp_path / "jax.json"))
     (g_stats,), (w_stats,) = ours_stats, jax_stats
     assert len(g_stats) == len(w_stats) == 8
     n_det = 0
@@ -260,6 +284,31 @@ def test_evaluator_matches_jax(n320, monkeypatch):
     for k in ("map50", "map", "mp", "mr"):
         assert got[k] == pytest.approx(want[k], abs=1e-6), k
     assert got["seen"] == 8 and got["map50"] > 0.9
+    np.testing.assert_allclose(got["val_loss_items"], want["val_loss_items"],
+                               rtol=1e-4)
+    assert got["val_loss_items"][0] > 0 and got["val_loss_items"][3] == 0
+
+    def rows(text):
+        return [[float(v) for v in line.split(",")]
+                for line in text.splitlines()]
+
+    files = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert sorted(p.name for p in (tmp_path / "ours").iterdir()) == files
+    assert "result.txt" in files and len(files) == 9
+    for name in files:
+        g = rows((tmp_path / "ours" / name).read_text())
+        w = rows((tmp_path / "jax" / name).read_text())
+        assert len(g) == len(w)
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-3)
+    g, w = (json.loads((tmp_path / f).read_text())
+            for f in ("ours.json", "jax.json"))
+    assert len(g) == len(w) == n_det
+    for a, b in zip(g, w):
+        assert (a["image_id"], a["category_id"]) == (b["image_id"],
+                                                     b["category_id"])
+        np.testing.assert_allclose(a["bbox"] + [a["score"]],
+                                   b["bbox"] + [b["score"]], rtol=1e-4,
+                                   atol=2e-3)
 
 
 def test_evaluator_map_over_the_val_set(n320):
@@ -276,17 +325,19 @@ def test_evaluator_map_over_the_val_set(n320):
 
 
 def test_evaluator_refuses_what_is_not_ported(n320):
+    """n_devices (ROADMAP A8) and the CUDA default; the val loss under TTA
+    is refused as in JAX."""
     if torch.cuda.is_available():
         assert evaluator.Evaluator(n320, 3).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             evaluator.Evaluator(n320, 3)
-    for name in ("augment", "confluence", "loss_fn", "n_devices"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            evaluator.Evaluator(n320, 3, device="cpu", **{name: 2})
-    ev = evaluator.Evaluator(n320, 3, device="cpu")
-    for name in ("mr_txt_dir", "coco_json", "plots_dir"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ev.run([], 320, **{name: "x"})
+    with pytest.raises(NotImplementedError, match="not ported.*A8"):
+        evaluator.Evaluator(n320, 3, device="cpu", n_devices=2)
+    with pytest.raises(ValueError, match="TTA"):
+        evaluator.Evaluator(n320, 3, device="cpu", augment=True,
+                            loss_fn=lambda *a: None)
+    ev = evaluator.Evaluator(n320, 3, device="cpu", n_devices=1)
     assert ev.top_k == 8192 and ev.conf_thres == 0.001
     assert ev.iou_thres == 0.5 and ev.max_det == 300
+    assert not ev.augment and not ev.confluence and ev.confluence_p == 0.6

@@ -1,9 +1,11 @@
 """icafusion_tpu_torch's training loop on the CPU: fit and cli.train on a
-tiny on-disk set (results.csv, checkpoints, resume, pretrained weights,
-multi-scale), the refusal to run without a card unless the CPU is asked
-for, and the options that are not ported."""
+tiny on-disk set (results.csv in both layouts, the KAIST MR columns, the
+plots, checkpoints, resume, pretrained weights, multi-scale), the refusal
+to run without a card unless the CPU is asked for, and the options that
+are not ported."""
 
 import csv
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -14,9 +16,11 @@ from icafusion_tpu_torch.cli import train as cli_train
 from icafusion_tpu_torch.config import load_data_config, load_hyp_config
 from icafusion_tpu_torch.data.synthetic import make_dataset
 from icafusion_tpu_torch.models.zoo import tiny_icafusion_config
-from icafusion_tpu_torch.train.fit import (RESULTS_HEADER, EpochMeter,
+from icafusion_tpu_torch.train.fit import (REFERENCE_RESULTS_KEYS,
+                                           RESULTS_HEADER, EpochMeter,
                                            FitConfig, fit)
 from icafusion_tpu_torch.utils.checkpoint import load_checkpoint
+from torch_port_common import val_ground_truth
 
 torch.set_num_threads(1)
 
@@ -104,10 +108,45 @@ def test_fit_and_trainer_need_a_card_unless_the_cpu_is_asked(data_yaml,
                         "--project", str(tmp_path)])
 
 
+@pytest.mark.parametrize("kaist", [False, True])
+def test_fit_writes_the_reference_row(data_yaml, tmp_path, monkeypatch,
+                                      capsys, kaist):
+    """results_format="reference": the reference's header and 29-key row,
+    the val losses from the Evaluator's loss_fn. Without kaist_ann the MR
+    columns are 0 and, with matplotlib, the curves, results.png and the
+    confusion matrix are drawn; with kaist_ann (a KAIST json of the val
+    boxes) each evaluation writes the MR txts and the row its miss rates,
+    and here matplotlib is hidden: the plots are skipped and logged."""
+    kw = {"results_format": "reference"}
+    if kaist:
+        kw["kaist_ann"] = str(val_ground_truth(data_yaml, tmp_path / "gt")[0])
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+    run = Path(fit(_cfg(data_yaml, tmp_path, **kw))["run_dir"])
+    rows = _rows(run)
+    assert rows[0] == ["epoch"] + REFERENCE_RESULTS_KEYS and len(rows) == 2
+    row = dict(zip(rows[0], (float(x) for x in rows[1])))
+    assert all(np.isfinite(v) for v in row.values())
+    assert row["val/box_loss"] > 0 and row["val/obj_loss"] > 0
+    assert row["val/rank_loss"] == 0 and row["train/rank_loss"] == 0
+    assert row["x/lr0"] == row["x/lr1"] == row["x/lr2"] > 0
+    mr = [row[k] for k in REFERENCE_RESULTS_KEYS[19:]]
+    pngs = {p.name for p in run.glob("*.png")}
+    if kaist:
+        assert (run / "mr_txt" / "result.txt").is_file()
+        # -1: a setup with no ground truth (the 'Reasonable' ones need
+        # boxes 55 px tall, taller than these 64 x 80 images hold)
+        assert all(v == -1 or 0 <= v <= 1 for v in mr) and max(mr) > 0
+        assert not pngs
+        assert "the plots are skipped" in capsys.readouterr().out
+    else:
+        assert mr == [0.0] * 10 and not (run / "mr_txt").exists()
+        assert {"PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png",
+                "results.png", "confusion_matrix.png"} <= pngs
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"distributed": True}, "A8"), ({"n_devices": 2}, "A8"),
-    ({"merge_streams": 2}, "A10"), ({"kaist_ann": "ann.json"}, "A2"),
-    ({"results_format": "reference"}, "A2"),
+    ({"merge_streams": 2}, "A10"),
     ({"pretrained": "yolov5l.pt"}, "A10")])
 def test_unported_fit_options_raise(data_yaml, tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=item):

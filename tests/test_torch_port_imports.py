@@ -1,5 +1,6 @@
 """The port (icafusion_tpu_torch) and chip_smoke.py import no JAX, no flax
-and nothing of the JAX package, in a fresh interpreter."""
+and nothing of the JAX package, in a fresh interpreter; matplotlib only
+when a plot is drawn."""
 
 import pathlib
 import subprocess
@@ -17,9 +18,13 @@ for n in names:
 train = ("cli.train", "data.synthetic", "train.autoanchor", "train.ema",
          "train.fit", "train.loss", "train.optim", "train.trainer")
 assert all("icafusion_tpu_torch." + t in names for t in train), names
+val = ("cli._common", "cli.val", "eval.cocoeval", "eval.kaist", "models.tta",
+       "ops.confluence", "utils.plots")
+assert all("icafusion_tpu_torch." + t in names for t in val), names
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu",
+                                    "matplotlib"))
 print(len(names), bad)
 """
 
@@ -30,7 +35,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
-    assert int(n) >= 40, out.stdout      # every module was walked
+    assert int(n) >= 47, out.stdout      # every module was walked
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

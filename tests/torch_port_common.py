@@ -114,3 +114,45 @@ def tiny_trainers(B, accum=1, bf16=False, **kw):
     tr = Trainer(model=model, hyp=load_hyp_config(), bf16=bf16,
                  device="cpu", **kw)
     return jtr, state, jstep, tr, variables
+
+
+def val_ground_truth(data_yaml, out_dir):
+    """(KAIST json, COCO json) of the val pairs of a data YAML written by
+    data/synthetic.make_dataset: every box a KAIST 'person' (category 1,
+    height = box height in pixels) on image id = val index, and a COCO
+    annotation of its class on image id = file stem, as the Evaluator's
+    MR lines and COCO dump number them."""
+    import json
+    from pathlib import Path
+
+    import cv2
+    import yaml
+
+    d = yaml.safe_load(Path(data_yaml).read_text())
+    root = Path(d["path"])
+    images = sorted((root / d["val_rgb"]).glob("*.jpg"))
+    kaist = {"images": [], "annotations": []}
+    coco = {"images": [], "annotations": [],
+            "categories": [{"id": c} for c in range(int(d["nc"]))]}
+    for idx, img in enumerate(images):
+        h, w = cv2.imread(str(img)).shape[:2]
+        kaist["images"].append({"id": idx, "height": h, "width": w})
+        coco["images"].append({"id": img.stem})
+        lab = root / "labels" / Path(d["val_rgb"]).name / f"{img.stem}.txt"
+        for row in np.loadtxt(lab, ndmin=2):
+            c, cx, cy, bw, bh = row
+            box = [float((cx - bw / 2) * w), float((cy - bh / 2) * h),
+                   float(bw * w), float(bh * h)]
+            n = len(coco["annotations"]) + 1
+            kaist["annotations"].append({
+                "id": n, "image_id": idx, "category_id": 1, "bbox": box,
+                "height": box[3], "occlusion": 0, "ignore": 0})
+            coco["annotations"].append({
+                "id": n, "image_id": img.stem, "category_id": int(c),
+                "bbox": box, "area": box[2] * box[3], "iscrowd": 0})
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = out_dir / "kaist_gt.json", out_dir / "coco_gt.json"
+    for p, doc in zip(paths, (kaist, coco)):
+        p.write_text(json.dumps(doc))
+    return paths
