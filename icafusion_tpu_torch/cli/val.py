@@ -75,11 +75,15 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _dataset(nc: int, rgb: str, ir: str, img_size: int):
+def _dataset(nc: int, rgb: str, ir: str, img_size: int,
+             single_cls: bool = False):
+    """The val pairs; single_cls collapses every label to class 0, as the
+    reference's dataset does (datasets.py:393)."""
     from icafusion_tpu_torch.config import load_hyp_config
     from icafusion_tpu_torch.data.datasets import PairedDetectionDataset
     return PairedDetectionDataset(rgb, ir, img_size=img_size,
-                                  hyp=load_hyp_config(), nc=nc)
+                                  hyp=load_hyp_config(), nc=nc,
+                                  single_cls=single_cls)
 
 
 def run_study(args, ev, nc: int, rgb: str, ir: str):
@@ -96,7 +100,7 @@ def run_study(args, ev, nc: int, rgb: str, ir: str):
     rows = []
     for s in range(start, stop, step):
         print(f"study point: imgsz={s} ...")
-        loader = PairedLoader(_dataset(nc, rgb, ir, s),
+        loader = PairedLoader(_dataset(nc, rgb, ir, s, args.single_cls),
                               batch_size=args.batch_size, shuffle=False)
         out = ev.run(loader.val_batches(), s)
         t = out["t_total_ms"]
@@ -135,13 +139,16 @@ def main(argv=None):
         args.conf_thres, args.iou_thres = 0.25, 0.45
         args.save_json = args.confusion = args.save_txt = False
         args.coco_gt = args.kaist_ann = None
-    ev = Evaluator(model, nc=data_cfg.nc, conf_thres=args.conf_thres,
+    # single_cls scores one class (test.py:157-158: nc = 1)
+    nc = 1 if args.single_cls else data_cfg.nc
+    ev = Evaluator(model, nc=nc, conf_thres=args.conf_thres,
                    iou_thres=args.iou_thres, single_cls=args.single_cls,
                    augment=args.augment, confluence=args.confluence,
                    confluence_p=args.confluence_p, device=device)
     if args.task == "study":
         return run_study(args, ev, data_cfg.nc, rgb, ir)
-    loader = PairedLoader(_dataset(data_cfg.nc, rgb, ir, args.img_size),
+    loader = PairedLoader(_dataset(data_cfg.nc, rgb, ir, args.img_size,
+                                   args.single_cls),
                           batch_size=args.batch_size, shuffle=False)
     save_dir = Path(args.save_dir)
     mr_dir = (str(save_dir / "labels") if (args.save_txt or args.kaist_ann)

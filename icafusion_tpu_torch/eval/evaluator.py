@@ -227,7 +227,8 @@ class Evaluator:
                             [tcls[:, None], tbox], 1))
                 else:
                     correct = np.zeros((len(pred), len(IOUV)), bool)
-                stats.append((correct, pred[:, 4], pred[:, 5], tcls))
+                # the class it was matched on: under single_cls the forced 0
+                stats.append((correct, pred[:, 4], predn[:, 5], tcls))
                 stem = Path(batch["paths"][si]).stem
                 if mr_txt_dir is not None:
                     mr_lines[stem] = [f"{seen},{x1:g},{y1:g},{x2 - x1:g},"

@@ -2,15 +2,23 @@
 
 Counterpart of the JAX package's serve/engine.py (``ServingEngine``), the
 serving path of the port: letterboxed uint8 pairs are padded to the engine
-batch, uploaded, scaled by 1/255, run through the two-stream model in the
-engine dtype, decoded and reduced by batched NMS on the device; the valid
-rows come back per image and are unpadded, and optionally rescaled to the
-native image size.
+batch (or a smaller bucket), uploaded, scaled by 1/255, run through the
+two-stream model in the engine dtype, decoded and reduced by batched NMS on
+the device; the valid rows come back per image and are unpadded, and
+optionally rescaled to the native image size.
+
+``predict_paths`` decodes image files (data/decode.py) and serves them,
+pipelined; ``warmup`` runs one batch; ``throughput`` times steady serving.
+Data-parallel serving, stream merging and int8 are not ported (ROADMAP A8,
+A10, A9).
 """
 
 from __future__ import annotations
 
 import copy
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -20,7 +28,7 @@ from icafusion_tpu_torch.models.assembler import ICAFusionModel
 from icafusion_tpu_torch.ops.boxes import scale_coords_np
 from icafusion_tpu_torch.ops.nms import (Detections, detections_to_numpy,
                                          non_max_suppression)
-from icafusion_tpu_torch.utils.general import resolve_device
+from icafusion_tpu_torch.utils.general import not_ported, resolve_device
 
 TOP_K = 1024   # candidates entering NMS, as the JAX engine serves
 
@@ -30,12 +38,22 @@ class ServingEngine:
     its own copy, cast to ``dtype`` and moved to ``device``).
 
     img_size: a square side or an (H, W) rect canvas. device=None means
-    CUDA and raises where there is none; the CPU must be asked for."""
+    CUDA and raises where there is none; the CPU must be asked for.
+    merge_streams: 0 or "auto" only. In the JAX package "auto" merges the
+    lane-starved layer pairs of the two streams for the TPU's matrix unit,
+    with outputs identical by construction; the port runs the streams
+    apart, and an explicit count raises (ROADMAP A10).
+
+    The engine may be called from several threads: a lock lets one of them
+    launch the device work of a batch at a time."""
 
     def __init__(self, model: ICAFusionModel, img_size: Union[int, Sequence[int]] = 640,
                  batch_size: int = 32, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,
-                 dtype: str = "bfloat16", device=None):
+                 dtype: str = "bfloat16", device=None, merge_streams=0):
+        if merge_streams not in (0, "0", "auto", None):
+            not_ported(f"merge_streams={merge_streams} (stream merging)",
+                       "A10")
         self.device = resolve_device(device, "ServingEngine")
         self.canvas = ((img_size, img_size) if isinstance(img_size, int)
                        else tuple(img_size))
@@ -44,22 +62,31 @@ class ServingEngine:
                                                          max_det)
         self.dtype = getattr(torch, dtype)
         self.model = copy.deepcopy(model).cast(self.dtype).to(self.device)
+        self._lock = threading.Lock()
 
     @torch.inference_mode()
-    def _serve(self, rgb: np.ndarray, ir: np.ndarray) -> Detections:
-        def prep(a):
-            x = torch.from_numpy(a).to(self.device).permute(0, 3, 1, 2)
-            return (x.float() / 255.0).to(self.dtype)
+    def _serve(self, rgb: torch.Tensor, ir: torch.Tensor) -> Detections:
+        """(B, H, W, 3) uint8 tensors on the device -> detections on the
+        device, queued without a wait for the host."""
+        def prep(x):
+            return (x.permute(0, 3, 1, 2).float() / 255.0).to(self.dtype)
 
-        pred = self.model(prep(rgb), prep(ir))
-        return non_max_suppression(pred, conf_thres=self.conf_thres,
-                                   iou_thres=self.iou_thres,
-                                   max_det=self.max_det, top_k=TOP_K)
+        with self._lock:
+            pred = self.model(prep(rgb), prep(ir))
+            return non_max_suppression(pred, conf_thres=self.conf_thres,
+                                       iou_thres=self.iou_thres,
+                                       max_det=self.max_det, top_k=TOP_K)
 
-    def _dispatch(self, rgb: np.ndarray, ir: np.ndarray):
-        """Pad to the engine batch and run; returns (detections, n)."""
+    def _dispatch(self, rgb: np.ndarray, ir: np.ndarray,
+                  batch: Optional[int] = None):
+        """Pad to the engine batch, or to an explicit smaller ``batch``
+        bucket (serve/batcher.py), upload and run; returns (detections still
+        on the device, n). The host waits only for the upload."""
         n = rgb.shape[0]
-        (H, W), B = self.canvas, self.batch_size
+        (H, W), B = self.canvas, batch or self.batch_size
+        if B > self.batch_size:
+            raise ValueError(f"bucket {B} exceeds the engine batch "
+                             f"{self.batch_size}")
         if n > B or rgb.shape[1:] != (H, W, 3) or ir.shape != rgb.shape:
             raise ValueError(f"predict_arrays: got {rgb.shape} / {ir.shape}, "
                              f"want at most {B} pairs of ({H}, {W}, 3)")
@@ -67,13 +94,15 @@ class ServingEngine:
             pad = np.zeros((B - n, H, W, 3), np.uint8)
             rgb = np.concatenate([rgb, pad])
             ir = np.concatenate([ir, pad])
-        return self._serve(np.ascontiguousarray(rgb),
-                           np.ascontiguousarray(ir)), n
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
+        return self._serve(up(rgb), up(ir)), n
 
     def _finalize(self, dets: Detections, n: int,
                   orig_hw=None) -> List[np.ndarray]:
         """Copy the detections to the host, drop the padding images and
-        rescale to native coordinates where orig_hw is given."""
+        rescale to native coordinates where orig_hw is given (the blocking
+        half of _dispatch)."""
         out = detections_to_numpy(dets)[:n]
         if orig_hw is not None:
             for i, hw0 in enumerate(orig_hw[:n]):
@@ -81,6 +110,15 @@ class ServingEngine:
                     out[i][:, :4] = scale_coords_np(self.canvas, out[i][:, :4],
                                                     tuple(hw0))
         return out
+
+    def warmup(self):
+        """One full batch of zero images, end to end."""
+        (H, W), B = self.canvas, self.batch_size
+        z = np.zeros((B, H, W, 3), np.uint8)
+        self._finalize(*self._dispatch(z, z))
+
+    def quantize(self, *args, **kwargs):
+        not_ported("int8 W8A8 serving (ServingEngine.quantize)", "A9")
 
     def predict_arrays(self, rgb: np.ndarray, ir: np.ndarray,
                        orig_hw: Optional[Sequence] = None) -> List[np.ndarray]:
@@ -90,3 +128,63 @@ class ServingEngine:
         native ones where orig_hw gives the native (h, w))."""
         dets, n = self._dispatch(rgb, ir)
         return self._finalize(dets, n, orig_hw)
+
+    def predict_paths(self, rgb_paths: List[str], ir_paths: List[str],
+                      n_threads: Optional[int] = None,
+                      pipeline: bool = True) -> List[np.ndarray]:
+        """Decode (data/decode.py, scaleup=True) and serve image pairs in
+        batches of batch_size; detections in native image coordinates.
+
+        pipeline=True decodes batch i+1 on a worker thread while batch i
+        runs on the device, and fetches batch i's detections only after
+        batch i+1 is dispatched, as the JAX engine does. The results are
+        equal and in order either way."""
+        from icafusion_tpu_torch.data.decode import decode_letterbox_batch
+        B = self.batch_size
+        chunks = [(rgb_paths[s:s + B], ir_paths[s:s + B])
+                  for s in range(0, len(rgb_paths), B)]
+
+        def decode(chunk):
+            rgb, ir, _, _, hw = decode_letterbox_batch(
+                chunk[0], chunk[1], self.canvas, scaleup=True,
+                n_threads=n_threads)
+            return rgb, ir, hw.tolist()
+
+        outs: List[np.ndarray] = []
+        if not pipeline:
+            for chunk in chunks:
+                rgb, ir, hw = decode(chunk)
+                outs.extend(self.predict_arrays(rgb, ir, orig_hw=hw))
+            return outs
+        pending = None                     # (device detections, n, hw)
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(decode, chunks[0]) if chunks else None
+            for i in range(len(chunks)):
+                rgb, ir, hw = fut.result()
+                fut = (ex.submit(decode, chunks[i + 1])
+                       if i + 1 < len(chunks) else None)
+                dets, n = self._dispatch(rgb, ir)
+                if pending is not None:
+                    outs.extend(self._finalize(*pending))
+                pending = (dets, n, hw)
+            if pending is not None:
+                outs.extend(self._finalize(*pending))
+        return outs
+
+    def throughput(self, iters: int = 20) -> float:
+        """Steady serving rate in pairs a second by the host clock: one
+        batch of random pairs uploaded once, one warm-up call, then iters
+        calls on the device tensors, with one synchronisation at the end."""
+        (H, W), B = self.canvas, self.batch_size
+        rng = np.random.default_rng(0)
+        rgb, ir = (torch.from_numpy(rng.integers(0, 256, (B, H, W, 3),
+                                                 np.uint8)).to(self.device)
+                   for _ in range(2))
+        self._serve(rgb, ir)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dets = self._serve(rgb, ir)
+        dets.scores.sum().item()
+        return B * iters / (time.perf_counter() - t0)

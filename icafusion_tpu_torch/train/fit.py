@@ -10,14 +10,16 @@ format -> the stripped EMA checkpoint.
 results.csv is the native 11-column row or the reference's 29-key row
 (results_format="reference": val losses from the Evaluator's loss_fn on the
 same eval forward); with kaist_ann each evaluation writes the MR txts and
-the reference row gets the KAIST miss rates. The last evaluation draws the
-PR/F1/P/R curves, and the run ends with results.png and the confusion
-matrix, where matplotlib imports (else the plots are skipped and logged).
+the reference row gets the KAIST miss rates. Where matplotlib imports, the
+run starts with labels.png and the mosaics of its first three batches
+(train_batch0-2.jpg), the last evaluation draws the PR/F1/P/R curves, and
+the run ends with results.png and the confusion matrix; where it does not,
+the plots are skipped and logged.
 
 Not ported, and refused with the ROADMAP item named: distributed and
 multi-device training, stream-merged training, a reference .pt as
-pretrained weights. The label and batch plots and the TensorBoard facade
-of the JAX fit are left out (they never gate a run there either).
+pretrained weights. The TensorBoard facade of the JAX fit is left out (it
+never gates a run there either).
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ from icafusion_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   strip_checkpoint,
                                                   wait_pending_saves)
 from icafusion_tpu_torch.utils.convert import load_jax_variables
-from icafusion_tpu_torch.utils.plots import plot_confusion_matrix, plot_results
+from icafusion_tpu_torch.utils.plots import (plot_confusion_matrix,
+                                             plot_images, plot_labels,
+                                             plot_results)
 from icafusion_tpu_torch.utils.general import (increment_path,
                                                labels_to_class_weights,
                                                not_ported, resolve_device)
@@ -292,6 +296,11 @@ def fit(cfg: FitConfig) -> dict:
     can_plot = importlib.util.find_spec("matplotlib") is not None
     if not can_plot:
         log("matplotlib is not installed: the plots are skipped")
+    elif any(len(l) for l in train_ds.labels):
+        try:   # the label distributions (train.py:222, plots.py:330)
+            plot_labels(train_ds.labels, names, run_dir)
+        except Exception as e:
+            log(f"plot_labels failed: {e}")
     results_csv = run_dir / "results.csv"
     if not results_csv.exists():
         with open(results_csv, "w", newline="") as f:
@@ -323,7 +332,13 @@ def fit(cfg: FitConfig) -> dict:
         meter = EpochMeter()
         pending = None
         metrics = None
-        for batch in loader.epoch(epoch):
+        for i, batch in enumerate(loader.epoch(epoch)):
+            if can_plot and epoch == start_epoch and i < 3:
+                try:   # the first three mosaics (train.py:361-365)
+                    plot_images(batch["rgb"], batch["targets"], batch["mask"],
+                                run_dir / f"train_batch{i}.jpg", names)
+                except Exception as e:
+                    log(f"plot_images failed: {e}")
             nxt = put(batch)
             if pending is not None:
                 metrics = run_step(pending)

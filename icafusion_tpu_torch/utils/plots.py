@@ -1,6 +1,14 @@
-"""The evaluation and training-curve plots (a copy of those of the JAX
-package's utils/plots.py; reference utils/plots.py and metrics.py):
+"""Drawing and plots (a copy of the JAX package's utils/plots.py;
+reference utils/plots.py, general.py and metrics.py).
 
+Drawn with cv2 alone, so they work where matplotlib is missing:
+- COLORS, color, plot_one_box (plots.py:67-87): a labelled box on an image;
+- save_one_box (general.py:692-702): a padded crop written as jpg;
+- plot_images (plots.py:173-249): a mosaic of a batch with its targets.
+
+Drawn with matplotlib:
+- plot_labels (plots.py:330-375): the class and box distributions;
+- plot_evolution (plots.py:378-400): hyperparameters against fitness;
 - plot_results (plots.py:457-480): the results.csv curves;
 - plot_pr_curve and plot_mc_curve (metrics.py:190-227): PR, F1, P and R
   curves per class;
@@ -9,8 +17,9 @@ package's utils/plots.py; reference utils/plots.py and metrics.py):
   cli/val.py --task study;
 - plot_mr_fppi (the KAIST evaluation script's MR-FPPI curve).
 
-matplotlib is imported by each function when it draws, with the Agg
-backend; where it is missing the call raises an ImportError that names it.
+cv2 and matplotlib are imported by each function when it draws,
+matplotlib with the Agg backend; where it is missing the call raises an
+ImportError that names it.
 """
 
 from __future__ import annotations
@@ -20,6 +29,92 @@ import math
 from pathlib import Path
 
 import numpy as np
+
+
+COLORS = [(255, 56, 56), (50, 205, 50), (65, 105, 225), (255, 157, 151),
+          (255, 112, 31), (147, 69, 52), (72, 249, 10), (26, 147, 52),
+          (0, 212, 187), (255, 56, 132)]
+
+
+def color(i: int):
+    return COLORS[int(i) % len(COLORS)]
+
+
+def plot_one_box(img, xyxy, label: str = "", col=(255, 56, 56),
+                 line_thickness: int = None):
+    """Draw one labelled box on img in place (plots.py:67-87)."""
+    import cv2
+    x1, y1, x2, y2 = (int(v) for v in xyxy)
+    tl = line_thickness or max(
+        round(0.002 * (img.shape[0] + img.shape[1]) / 2), 1)
+    cv2.rectangle(img, (x1, y1), (x2, y2), col, tl, cv2.LINE_AA)
+    if label:
+        tf = max(tl - 1, 1)
+        ts = cv2.getTextSize(label, 0, fontScale=tl / 3, thickness=tf)[0]
+        cv2.rectangle(img, (x1, y1), (x1 + ts[0], y1 - ts[1] - 3), col, -1,
+                      cv2.LINE_AA)
+        cv2.putText(img, label, (x1, y1 - 2), 0, tl / 3, (225, 255, 255), tf,
+                    cv2.LINE_AA)
+
+
+def save_one_box(xyxy, im_bgr, file, gain: float = 1.02, pad: int = 10,
+                 square: bool = False) -> Path:
+    """Write a gain-scaled, pad-grown crop of im_bgr (BGR uint8) to file as
+    jpg (general.py:692-702); an existing name gets _2, _3, ... Returns the
+    path written."""
+    import cv2
+    x1, y1, x2, y2 = (float(v) for v in xyxy)
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    w, h = x2 - x1, y2 - y1
+    if square:
+        w = h = max(w, h)
+    w, h = w * gain + 2 * pad, h * gain + 2 * pad
+    H, W = im_bgr.shape[:2]
+    xa = int(np.clip(cx - w / 2, 0, W - 1))
+    xb = int(np.clip(cx + w / 2, 0, W))
+    ya = int(np.clip(cy - h / 2, 0, H - 1))
+    yb = int(np.clip(cy + h / 2, 0, H))
+    file = Path(file).with_suffix(".jpg")
+    file.parent.mkdir(parents=True, exist_ok=True)
+    base, n = file, 2
+    while file.exists():
+        file = base.with_name(f"{base.stem}_{n}.jpg")
+        n += 1
+    cv2.imwrite(str(file), im_bgr[ya:yb, xa:xb])
+    return file
+
+
+def plot_images(images, targets, masks=None, path=None, names=None,
+                max_images: int = 16):
+    """A mosaic of a batch with its target boxes (plots.py:173-249).
+    images: (B, H, W, 3) uint8, or float in [0, 1]; targets: (B, T, 5)
+    normalised class + xywh with a (B, T) mask. Written to path (RGB in, jpg
+    out) where given; returns the mosaic."""
+    import cv2
+    imgs = np.asarray(images)[:max_images]
+    if imgs.dtype != np.uint8:
+        imgs = (imgs * 255).clip(0, 255).astype(np.uint8)
+    B, H, W, _ = imgs.shape
+    cols = int(math.ceil(math.sqrt(B)))
+    rows = int(math.ceil(B / cols))
+    canvas = np.full((rows * H, cols * W, 3), 255, np.uint8)
+    for i in range(B):
+        r, c = divmod(i, cols)
+        tile = imgs[i].copy()
+        t = np.asarray(targets[i])
+        m = (np.asarray(masks[i]) if masks is not None
+             else np.ones(len(t), bool))
+        for (cls, cx, cy, bw, bh), ok in zip(t, m):
+            if not ok:
+                continue
+            box = ((cx - bw / 2) * W, (cy - bh / 2) * H,
+                   (cx + bw / 2) * W, (cy + bh / 2) * H)
+            label = names[int(cls)] if names else str(int(cls))
+            plot_one_box(tile, box, label, color(cls))
+        canvas[r * H:(r + 1) * H, c * W:(c + 1) * W] = tile
+    if path:
+        cv2.imwrite(str(path), canvas[:, :, ::-1])
+    return canvas
 
 
 def _pyplot():
@@ -174,5 +269,63 @@ def plot_study_txt(study_dir=".", save_path=None):
     ax.legend(loc="lower right")
     save_path = save_path or study_dir / "study.png"
     fig.savefig(save_path, dpi=300)
+    plt.close(fig)
+    return str(save_path)
+
+
+def plot_labels(labels, names=None, save_dir="."):
+    """Class histogram and box centre and size distributions of a list of
+    (n, 5) label arrays (plots.py:330-375); writes labels.png."""
+    plt = _pyplot()
+    rows = np.concatenate([l for l in labels if len(l)], 0)
+    cls, boxes = rows[:, 0], rows[:, 1:5]
+    nc = int(cls.max()) + 1
+    fig, ax = plt.subplots(2, 2, figsize=(8, 8), tight_layout=True)
+    ax = ax.ravel()
+    ax[0].hist(cls, bins=np.arange(nc + 1) - 0.5, rwidth=0.8)
+    ax[0].set_xlabel("class")
+    if names and len(names) == nc:
+        ax[0].set_xticks(range(nc))
+        ax[0].set_xticklabels(names, rotation=90, fontsize=8)
+    ax[1].scatter(boxes[:, 0], boxes[:, 1], c=cls, s=3, cmap="tab10")
+    ax[1].set_xlabel("x")
+    ax[1].set_ylabel("y")
+    ax[2].scatter(boxes[:, 2], boxes[:, 3], c=cls, s=3, cmap="tab10")
+    ax[2].set_xlabel("width")
+    ax[2].set_ylabel("height")
+    ax[3].hist2d(boxes[:, 2], boxes[:, 3], bins=50, cmap="Blues")
+    ax[3].set_xlabel("width")
+    ax[3].set_ylabel("height")
+    out = Path(save_dir) / "labels.png"
+    fig.savefig(out, dpi=150)
+    plt.close(fig)
+    return out
+
+
+def plot_evolution(evolve_csv, save_path=None):
+    """Each hyperparameter against fitness over an evolve log (plots.py:
+    378-400, over the JAX package's evolve.csv: header `fitness,<hyp
+    keys...>`), the best run's value marked in each panel."""
+    plt = _pyplot()
+    evolve_csv = Path(evolve_csv)
+    keys = evolve_csv.read_text().splitlines()[0].split(",")[1:]
+    x = np.loadtxt(evolve_csv, delimiter=",", skiprows=1, ndmin=2)
+    if not len(x):
+        return None
+    f = x[:, 0]
+    ncols = 5
+    nrows = math.ceil(len(keys) / ncols)
+    fig = plt.figure(figsize=(10, 2 * nrows), tight_layout=True)
+    for i, k in enumerate(keys):
+        y = x[:, i + 1]
+        mu = y[f.argmax()]
+        plt.subplot(nrows, ncols, i + 1)
+        plt.scatter(y, f, c=f, cmap="viridis", alpha=0.8, edgecolors="none")
+        plt.plot(mu, f.max(), "k+", markersize=15)
+        plt.title(f"{k} = {mu:.3g}", fontdict={"size": 9})
+        if i % ncols != 0:
+            plt.yticks([])
+    save_path = save_path or evolve_csv.with_suffix(".png")
+    fig.savefig(save_path, dpi=200)
     plt.close(fig)
     return str(save_path)

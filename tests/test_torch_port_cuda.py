@@ -315,3 +315,72 @@ def test_train_steps_on_the_card_match_the_cpu(dev):
     off) on the card and on the CPU: chip_smoke.py's phase 6a, whose
     docstring and constants give the tolerances and why."""
     chip_smoke.train_card_vs_cpu()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_batch_one(dev, dtype):
+    """The MicroBatcher's smallest bucket: the attention at the three
+    serving shapes, NMS over the serving pool and the conv on the 640
+    square's 160 x 160 map in both layouts, each at B = 1, held to its
+    plain version with the tolerances above."""
+    rtol, atol = ATTENTION_TOL[dtype]
+    for N, D in ((400, 256), (256, 512), (100, 1024)):
+        args = _attention_args(1, N, D, dtype, dev, seed=N)
+        for g, w in zip(dual_cross_attention(*args),
+                        dual_cross_attention_reference(*args)):
+            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                       atol=atol)
+    _nms_equal(*_nms_inputs(1, 1024, dev, seed=7, pad=-0.5), 0.45, 300)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for layout in (torch.channels_last, torch.contiguous_format):
+        args = _conv_args((1, 64, 160, 160), dtype, layout, dev)
+        torch.testing.assert_close(conv3x3_bn_silu(*args).float(),
+                                   conv3x3_bn_silu_reference(*args).float(),
+                                   rtol=tol, atol=tol)
+
+
+def test_batcher_and_predict_paths_on_the_card_match_the_cpu(dev, tmp_path):
+    """The tiny model in fp32: predict_paths (pipelined) over three JPEG
+    pairs, and the MicroBatcher over six concurrent requests, on the card
+    against the CPU engine. The decoded predictions agree to 1e-3 (the test
+    above), so at least 90 % of each image's detections have a partner of
+    the same class at IoU > 0.5 both ways (chip_smoke.matched)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+
+    from icafusion_tpu_torch.serve.batcher import MicroBatcher
+    model = build_model(tiny_icafusion_config(),
+                        generator=torch.Generator().manual_seed(0))
+    engines = {d: ServingEngine(model, (64, 96), 4, conf_thres=0.1,
+                                dtype="float32", device=d)
+               for d in (dev, "cpu")}
+    rng = np.random.default_rng(1)
+    paths = ([], [])
+    for i, hw in enumerate([(120, 160), (64, 96), (90, 90)]):
+        for tag, lst in zip(("rgb", "ir"), paths):
+            p = tmp_path / f"{tag}{i}.jpg"
+            cv2.imwrite(str(p), rng.integers(0, 256, (*hw, 3), np.uint8))
+            lst.append(str(p))
+    rgb = rng.integers(0, 256, (6, 64, 96, 3), np.uint8)
+    ir = rng.integers(0, 256, (6, 64, 96, 3), np.uint8)
+    want = engines["cpu"].predict_paths(*paths)
+    got = engines[dev].predict_paths(*paths)
+    want += [engines["cpu"].predict_arrays(rgb[i:i + 1], ir[i:i + 1])[0]
+             for i in range(6)]
+    with MicroBatcher(engines[dev], max_wait_ms=200.0) as mb:
+        mb.warmup()
+        barrier = threading.Barrier(6)
+
+        def call(i):
+            barrier.wait(timeout=60)
+            return mb.submit(rgb[i], ir[i])
+
+        with ThreadPoolExecutor(6) as ex:
+            got += list(ex.map(call, range(6)))
+        assert mb.stats()["requests"] == 6
+    assert sum(len(g) for g in got) > 0
+    for g, w in zip(got, want):
+        assert chip_smoke.matched(g, w) >= 0.9
+        assert chip_smoke.matched(w, g) >= 0.9

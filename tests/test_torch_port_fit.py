@@ -114,7 +114,8 @@ def test_fit_writes_the_reference_row(data_yaml, tmp_path, monkeypatch,
     """results_format="reference": the reference's header and 29-key row,
     the val losses from the Evaluator's loss_fn. Without kaist_ann the MR
     columns are 0 and, with matplotlib, the curves, results.png and the
-    confusion matrix are drawn; with kaist_ann (a KAIST json of the val
+    confusion matrix are drawn, with the label distributions and the first
+    batches' mosaics; with kaist_ann (a KAIST json of the val
     boxes) each evaluation writes the MR txts and the row its miss rates,
     and here matplotlib is hidden: the plots are skipped and logged."""
     kw = {"results_format": "reference"}
@@ -136,12 +137,13 @@ def test_fit_writes_the_reference_row(data_yaml, tmp_path, monkeypatch,
         # -1: a setup with no ground truth (the 'Reasonable' ones need
         # boxes 55 px tall, taller than these 64 x 80 images hold)
         assert all(v == -1 or 0 <= v <= 1 for v in mr) and max(mr) > 0
-        assert not pngs
+        assert not pngs and not list(run.glob("train_batch*.jpg"))
         assert "the plots are skipped" in capsys.readouterr().out
     else:
         assert mr == [0.0] * 10 and not (run / "mr_txt").exists()
         assert {"PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png",
-                "results.png", "confusion_matrix.png"} <= pngs
+                "results.png", "confusion_matrix.png", "labels.png"} <= pngs
+        assert (run / "train_batch0.jpg").is_file()
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -21,6 +21,10 @@ assert all("icafusion_tpu_torch." + t in names for t in train), names
 val = ("cli._common", "cli.val", "eval.cocoeval", "eval.kaist", "models.tta",
        "ops.confluence", "utils.plots")
 assert all("icafusion_tpu_torch." + t in names for t in val), names
+serve = ("cli.detect", "data.decode", "data.streams", "hub", "ops.nms",
+         "serve.batcher", "serve.engine", "serve.http_server", "train.fit",
+         "utils.plots")
+assert all("icafusion_tpu_torch." + t in names for t in serve), names
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu",
@@ -35,7 +39,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
-    assert int(n) >= 47, out.stdout      # every module was walked
+    assert int(n) >= 53, out.stdout      # every module was walked
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -120,3 +120,52 @@ def test_plots_name_matplotlib_when_it_is_missing(monkeypatch, tmp_path):
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     with pytest.raises(ImportError, match="matplotlib"):
         plots.plot_mr_fppi([0.1, 1.0], [0.5, 0.2], tmp_path / "mr.png")
+
+
+def test_single_cls_scores_collapsed_labels_unlike_jax(setup, tmp_path,
+                                                       monkeypatch):
+    """--single-cls on two-class labels (class 0 and class 1 on each of
+    four images) with detections that are exactly the labels, each of its
+    own class. The port collapses the labels to class 0 in the dataset,
+    forces the predictions to 0 and scores one class: every label is
+    matched, as without --single-cls. The JAX package keeps the labels'
+    classes and scores the predictions on their own (ROADMAP, JAX-side
+    faults): no class-1 label is ever matched, so class 1 scores 0 and
+    mAP@50 falls to half."""
+    import cv2
+
+    from icafusion_tpu.cli import val as jax_val
+    from icafusion_tpu.eval import evaluator as jax_evaluator
+    from icafusion_tpu_torch.eval import evaluator
+
+    root = tmp_path / "data"
+    for d in ("visible/val", "infrared/val", "labels/val"):
+        (root / d).mkdir(parents=True)
+    for i in range(4):
+        for d in ("visible", "infrared"):
+            cv2.imwrite(str(root / d / "val" / f"{i}.jpg"),
+                        np.full((64, 64, 3), 40 * i, np.uint8))
+        (root / "labels" / "val" / f"{i}.txt").write_text(
+            "0 0.25 0.25 0.25 0.25\n1 0.75 0.75 0.25 0.25\n")
+    data = tmp_path / "two.yaml"
+    data.write_text(f"path: {root}\nval_rgb: visible/val\n"
+                    "val_ir: infrared/val\nnc: 3\nnames: [a, b, c]\n")
+    exact = np.array([[8, 8, 24, 24, 0.9, 0], [40, 40, 56, 56, 0.8, 1]],
+                     np.float32)
+    fake = lambda dets: [exact.copy() for _ in range(dets.boxes.shape[0])]
+    monkeypatch.setattr(evaluator, "detections_to_numpy", fake)
+    monkeypatch.setattr(jax_evaluator, "detections_to_numpy", fake)
+    args = ["--weights", str(setup[1]), "--cfg", "zoo:tiny", "--data",
+            str(data), "--img-size", "64", "--batch-size", "2"]
+    run = lambda main, name, *extra: main(
+        args + ["--save-dir", str(tmp_path / name), *extra])
+    port = run(val.main, "p1", "--single-cls", "--device", "cpu")
+    port_plain = run(val.main, "p2", "--device", "cpu")
+    jax_single = run(jax_val.main, "j1", "--single-cls")
+    jax_plain = run(jax_val.main, "j2")
+    perfect = port_plain["map50"]
+    assert perfect == jax_plain["map50"] > 0.99
+    assert port["map50"] == perfect and port["map"] == port_plain["map"]
+    assert port["nt"].tolist() == [8]             # one class, 8 labels
+    assert jax_single["map50"] == pytest.approx(perfect / 2)
+    assert jax_single["per_class"][1]["ap50"] == 0.0
