@@ -9,28 +9,26 @@ from icafusion_tpu_torch.utils.general import not_ported
 
 
 def resolve_model_config(cfg: str, nc=None):
-    """A model YAML (a path or a preset name), or a zoo spec:
-    'zoo:<fusion>:<scale>' (e.g. zoo:tfb:l; scale defaults to l),
-    'zoo:tiny[:<fusion>]'. Only the tfb fusion is ported (the NiN, Add and
-    DMAF fusions are ROADMAP A5), and the zoo's VGG16 and ResNet50
-    backbones are not (A10)."""
+    """A model YAML (a path or a preset name), or a zoo spec as the JAX CLI
+    takes it: 'zoo:<fusion>[:<scale>]' (e.g. zoo:nin:s; scale defaults to
+    l), 'zoo:tiny[:<fusion>]', 'zoo:vgg16[:<fusion>]',
+    'zoo:resnet50[:<fusion>]'. Fusions: tfb, nin, add, dmaf."""
     from icafusion_tpu_torch.config import load_model_config
     from icafusion_tpu_torch.models import zoo
 
     if not cfg.startswith("zoo:"):
         return load_model_config(cfg, nc=nc)
     parts = cfg.split(":")[1:]
-    if parts[0] in ("vgg16", "resnet50"):
-        not_ported(f"the {parts[0]} backbone ({cfg})", "A10")
+    nc = nc or 3
+    fusion = parts[1] if len(parts) > 1 else "tfb"
     if parts[0] == "tiny":
-        fusion, scale = (parts[1] if len(parts) > 1 else "tfb"), None
-    else:
-        fusion, scale = parts[0], (parts[1] if len(parts) > 1 else "l")
-    if fusion in ("nin", "add", "dmaf"):
-        not_ported(f"the {fusion} fusion ({cfg})", "A5")
-    if scale is None:
-        return zoo.tiny_icafusion_config(nc=nc or 3, fusion=fusion)
-    return zoo.icafusion_config(scale, nc=nc or 3, fusion=fusion)
+        return zoo.tiny_icafusion_config(nc=nc, fusion=fusion)
+    if parts[0] == "vgg16":
+        return zoo.vgg16_icafusion_config(nc=nc, fusion=fusion)
+    if parts[0] == "resnet50":
+        return zoo.resnet50_icafusion_config(nc=nc, fusion=fusion)
+    return zoo.icafusion_config(parts[1] if len(parts) > 1 else "l", nc=nc,
+                                fusion=parts[0])
 
 
 def load_model_for_inference(cfg: str, weights: str, nc=None, merge=0):

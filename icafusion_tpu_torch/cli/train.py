@@ -21,7 +21,8 @@ import numpy as np
 def parse_args(argv=None):
     ap = argparse.ArgumentParser("icafusion-torch-train")
     ap.add_argument("--cfg", required=True,
-                    help="model yaml or zoo:tfb:<scale> / zoo:tiny")
+                    help="model yaml or zoo:<fusion>:<scale> / zoo:tiny / "
+                         "zoo:vgg16 / zoo:resnet50")
     ap.add_argument("--data", required=True, help="dataset yaml")
     ap.add_argument("--hyp", default=None, help="hyperparameter yaml")
     ap.add_argument("--weights", default=None,

@@ -24,7 +24,8 @@ def parse_args(argv=None):
                     help=".ckpt of either package (a reference .pt is not "
                          "ported)")
     ap.add_argument("--cfg", required=True,
-                    help="model yaml or zoo:tfb:<scale> / zoo:tiny")
+                    help="model yaml or zoo:<fusion>:<scale> / zoo:tiny / "
+                         "zoo:vgg16 / zoo:resnet50")
     ap.add_argument("--data", required=True, help="dataset yaml")
     ap.add_argument("--img-size", type=int, default=640)
     ap.add_argument("--batch-size", type=int, default=32)

@@ -33,18 +33,24 @@
 //             in fp32, so only the order of the sums differs from an fp32
 //             GEMM.
 //   launch 2  flash_attention_kernel: one block of 4 warps per (64-query
-//             tile, head, batch x direction), 16 query rows a warp.
-//             mma.sync m16n8k16 (tiles this small, dk <= 128 and N <= 400,
-//             do not fill a wgmma pipeline): S = Q K^T stays in fp32
+//             tile, head x value slice, batch x direction), 16 query rows a
+//             warp. mma.sync m16n8k16 (tiles this small, dk <= 256 and
+//             N <= 400, do not fill a wgmma pipeline): S = Q K^T stays in fp32
 //             registers with the online softmax in fp32 (exp2 with the
 //             scale folded in); P is rounded to bf16 in registers and
 //             reused as the A operand of P V, because the accumulator
 //             layout of m16n8k16 is its A layout, so P never touches shared
 //             memory. K and V tiles of 64 keys arrive by cp.async, double
 //             buffered; Q, K and V fragments come from ldmatrix (V through
-//             .trans). dk is padded to dkp in {16, 32, 64, 128} (the padding
-//             is zero) and ragged N is masked (zero-filled rows, -inf
-//             logits).
+//             .trans). dk is padded to dkp in {16, 32, 64, 128, 192, 256}
+//             (the padding is zero) and ragged N is masked (zero-filled
+//             rows, -inf logits). Above 128 the value columns are split
+//             across blocks, DV = dkp / 2 each: a 16 x 256 fp32 O
+//             accumulator alone would take 128 registers a thread. Each
+//             block recomputes S over the full dkp (cheap at N <= 400) and
+//             reads its Q fragments from shared memory at every key tile
+//             instead of holding them (another 64 registers at 256). K and
+//             V tiles of 64 keys then take 136 KB at dkp 256.
 //   q/k/v and P are rounded to bf16 before their products, as the JAX
 //   einsum path (icafusion_tpu/nn/fusion.py:237-266) and the plain version
 //   do.
@@ -54,9 +60,12 @@
 //   launch 1  a tiled shared-memory GEMM (64 x 64 tiles, 4 x 4 outputs per
 //             thread), one grid z-slice per projection, into an fp32 scratch
 //             (6, B, h, N, dk);
-//   launch 2  one block per (64-query tile, head, batch x direction) runs an
-//             online softmax over 64-key tiles of K and V staged in shared
-//             memory; four threads share a query row.
+//   launch 2  one block per (64-query tile, head x value slice, batch x
+//             direction) runs an online softmax over 64-key tiles of K and
+//             V staged in shared memory; four threads share a query row.
+//             Above dk 128 the value columns are split across blocks as in
+//             bf16, so that the staged tiles stay under the 227 KB a block
+//             may opt in to (177 KB at dk 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,11 +191,10 @@ projections_wgmma_kernel(const __grid_constant__ Maps maps, Out o) {
     return o.qkv + ((((size_t)z * B + m / o.N) * o.H + col / o.dk) * o.N +
                     m % o.N) * o.dkp + col % o.dk;
   };
-  if (o.dk % 8 == 0 && kBN % o.dk == 0) {   // 16 bytes along a head's rows
-    const int kc = o.dk / 8;
-    for (int v = tid; v < kBM * kBN / 8; v += kConsumers) {
-      const int hh = v / (kBM * kc), rem = v % (kBM * kc);
-      const int r = rem / kc, c = hh * o.dk + (rem % kc) * 8;
+  if (o.dk % 8 == 0) {                      // a 16-byte chunk never
+    constexpr int kc = kBN / 8;              // straddles two heads
+    for (int v = tid; v < kBM * kc; v += kConsumers) {
+      const int r = v / kc, c = (v % kc) * 8;
       if (m0 + r < o.M && n0 + c < o.D)
         *reinterpret_cast<uint4*>(dst(m0 + r, n0 + c)) =
             *reinterpret_cast<const uint4*>(st + r * kLDO + c);
@@ -205,9 +213,14 @@ namespace flash {
 
 constexpr int kBQ = 64, kBKV = 64, kThreads = 128;
 
+// value columns a block computes: all of dkp up to 128, half above
+__host__ __device__ constexpr int value_cols(int dkp) {
+  return dkp <= 128 ? dkp : dkp / 2;
+}
+
 template <int DKP>
-constexpr size_t smem_bytes() {
-  return (size_t)5 * 64 * (DKP + 8) * 2;   // Q, K[2], V[2]
+constexpr size_t smem_bytes() {   // Q, K[2] of DKP columns; V[2] of DV
+  return (size_t)(3 * 64 * (DKP + 8) + 2 * 64 * (value_cols(DKP) + 8)) * 2;
 }
 
 struct Args {
@@ -217,22 +230,28 @@ struct Args {
   float scale_log2;           // log2(e) / sqrt(dk)
 };
 
-// grid: (ceil(N / 64), H, B * 2); blockIdx.z = b * 2 + direction.
+// grid: (ceil(N / 64), H * DKP / DV, B * 2); blockIdx.y = h * slices +
+// value slice; blockIdx.z = b * 2 + direction.
 // direction 0: out_vis = softmax(q_ir k_vis^T) v_vis; 1: out_ir, q_vis k_ir v_ir
 template <int DKP>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(Args a) {
+  constexpr int DV = value_cols(DKP);
+  constexpr bool kQInRegs = DKP <= 128;  // else reloaded at each key tile
   constexpr int LD = DKP + 8;            // row pitch (bf16): conflict-free ldmatrix
+  constexpr int LDV = DV + 8;
   constexpr int kTileElems = 64 * LD;
-  constexpr int kChunks = DKP / 8;       // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sq = smem_u32(smem);
   auto sk = [&](int buf) { return sq + (1 + buf) * kTileElems * 2; };
-  auto sv = [&](int buf) { return sq + (3 + buf) * kTileElems * 2; };
+  auto sv = [&](int buf) {
+    return sq + (3 * kTileElems + buf * 64 * LDV) * 2;
+  };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int dir = blockIdx.z & 1, b = blockIdx.z >> 1, h = blockIdx.y;
+  const int dir = blockIdx.z & 1, b = blockIdx.z >> 1;
+  const int h = blockIdx.y / (DKP / DV), c0 = blockIdx.y % (DKP / DV) * DV;
   const int q0 = blockIdx.x * kBQ, N = a.N;
   const int zq = dir == 0 ? 3 : 0, zk = dir == 0 ? 1 : 4, zv = zk + 1;
   auto head = [&](int z) {
@@ -240,61 +259,76 @@ flash_attention_kernel(Args a) {
   };
   const __nv_bfloat16 *Qg = head(zq), *Kg = head(zk), *Vg = head(zv);
 
-  // rows row0 .. row0 + 63 of a head into a tile, zero past N
-  auto load_rows = [&](uint32_t dst, const __nv_bfloat16* src, int row0) {
-    for (int e = tid; e < 64 * kChunks; e += kThreads) {
-      const int r = e / kChunks, c = e % kChunks;
+  // rows row0 .. row0 + 63 of a head, `cols` columns from col0, into a
+  // tile of row pitch ld; zero past N
+  auto load_rows = [&](uint32_t dst, const __nv_bfloat16* src, int row0,
+                       int col0, int cols, int ld) {
+    const int chunks = cols / 8;         // 16-byte chunks per row
+    for (int e = tid; e < 64 * chunks; e += kThreads) {
+      const int r = e / chunks, c = e % chunks;
       const bool valid = row0 + r < N;
-      cp_async_16(dst + (r * LD + c * 8) * 2,
-                  src + (size_t)(valid ? row0 + r : 0) * DKP + c * 8, valid);
+      cp_async_16(dst + (r * ld + c * 8) * 2,
+                  src + (size_t)(valid ? row0 + r : 0) * DKP + col0 + c * 8,
+                  valid);
     }
   };
+  auto load_kv = [&](int buf, int row0) {
+    load_rows(sk(buf), Kg, row0, 0, DKP, LD);
+    load_rows(sv(buf), Vg, row0, c0, DV, LDV);
+  };
 
-  load_rows(sq, Qg, q0);
-  load_rows(sk(0), Kg, 0);
-  load_rows(sv(0), Vg, 0);
+  load_rows(sq, Qg, q0, 0, DKP, LD);
+  load_kv(0, 0);
   cp_async_commit();
 
   // ldmatrix lane offsets: A-style (rows 0-15, k halves) and B-style
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
 
-  uint32_t qf[DKP / 16][4];
-  float o[DKP / 8][4];
+  uint32_t qf[kQInRegs ? DKP / 16 : 1][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < DKP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   const int tiles = (N + kBKV - 1) / kBKV;
   for (int kt = 0; kt < tiles; ++kt) {
     const int buf = kt & 1, k0 = kt * kBKV;
     if (kt + 1 < tiles) {   // the next tile loads while this one computes
-      load_rows(sk(buf ^ 1), Kg, k0 + kBKV);
-      load_rows(sv(buf ^ 1), Vg, k0 + kBKV);
+      load_kv(buf ^ 1, k0 + kBKV);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    const uint32_t q_addr = sq + ((warp * 16 + a_row) * LD + a_col) * 2;
+    if constexpr (kQInRegs) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DKP / 16; ++kk)
-        ldmatrix_x4(qf[kk], sq + ((warp * 16 + a_row) * LD + kk * 16 + a_col) * 2);
+        for (int kk = 0; kk < DKP / 16; ++kk) ldmatrix_x4(qf[kk], q_addr + kk * 32);
+      }
     }
 
     float s[8][4];   // 16 rows x 64 keys: n-block nb holds keys 8 nb ..
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DKP / 16; ++kk)
+    for (int kk = 0; kk < DKP / 16; ++kk) {
+      uint32_t q[4];
+      if constexpr (kQInRegs) {
+        q[0] = qf[kk][0]; q[1] = qf[kk][1]; q[2] = qf[kk][2]; q[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(q, q_addr + kk * 32);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, sk(buf) + ((np * 16 + b_row) * LD + kk * 16 + b_col) * 2);
-        mma_bf16_16816(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16_16816(s[2 * np], q, kf[0], kf[1]);
+        mma_bf16_16816(s[2 * np + 1], q, kf[2], kf[3]);
       }
+    }
 
     // online softmax in the log2 domain; rows g (regs 0, 1) and g + 8 (2, 3)
     float mx[2] = {-INFINITY, -INFINITY};
@@ -324,7 +358,7 @@ flash_attention_kernel(Args a) {
         l_run[e >> 1] += s[nb][e];
       }
 #pragma unroll
-    for (int i = 0; i < DKP / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       o[i][0] *= alpha[0];
       o[i][1] *= alpha[0];
       o[i][2] *= alpha[1];
@@ -339,9 +373,9 @@ flash_attention_kernel(Args a) {
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < DKP / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sv(buf) + ((kk * 16 + a_row) * LD + dp * 16 + a_col) * 2);
+        ldmatrix_x4_trans(vf, sv(buf) + ((kk * 16 + a_row) * LDV + dp * 16 + a_col) * 2);
         mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
         mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
       }
@@ -362,8 +396,8 @@ flash_attention_kernel(Args a) {
     const float inv = 1.f / l_run[r];
     __nv_bfloat16* dst = a.out[dir] + ((size_t)b * N + q) * D + h * a.dk;
 #pragma unroll
-    for (int i = 0; i < DKP / 8; ++i) {
-      const int d = 8 * i + 2 * t;
+    for (int i = 0; i < DV / 8; ++i) {
+      const int d = c0 + 8 * i + 2 * t;
       const float v0 = o[i][2 * r] * inv, v1 = o[i][2 * r + 1] * inv;
       if (a.dk % 2 == 0) {
         if (d < a.dk)
@@ -382,23 +416,23 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DKP>();
   cudaError_t err = opt_in_smem(flash_attention_kernel<DKP>, smem, opted);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.N + kBQ - 1) / kBQ, a.H, a.B * 2);
+  dim3 grid((a.N + kBQ - 1) / kBQ, a.H * (DKP / value_cols(DKP)), a.B * 2);
   flash_attention_kernel<DKP><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace flash
 
-// dk padded to the width the flash kernel is built for
-int padded_dk(int dk) { return dk <= 16 ? 16 : dk <= 32 ? 32 : dk <= 64 ? 64 : 128; }
-
 bool g_proj_opt_in[kMaxDevices];
 
 cudaError_t run_bf16(const void* vis, const void* ir,
                      const void* const* w, const void* const* bs, void* qkv,
                      void* out_vis, void* out_ir, int B, int N, int D, int H,
-                     cudaStream_t st) {
-  const int M = B * N, dk = D / H, dkp = padded_dk(dk);
+                     int dkp, cudaStream_t st) {
+  const int M = B * N, dk = D / H;
+  if (dkp < dk || (dkp != 16 && dkp != 32 && dkp != 64 && dkp != 128 &&
+                   dkp != 192 && dkp != 256))
+    return cudaErrorInvalidValue;
   proj::Maps maps;
   const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)M};
   const cuuint64_t wdims[2] = {(cuuint64_t)D, (cuuint64_t)D};
@@ -442,7 +476,9 @@ cudaError_t run_bf16(const void* vis, const void* ir,
     case 16: return flash::launch<16>(a, st);
     case 32: return flash::launch<32>(a, st);
     case 64: return flash::launch<64>(a, st);
-    default: return flash::launch<128>(a, st);
+    case 128: return flash::launch<128>(a, st);
+    case 192: return flash::launch<192>(a, st);
+    default: return flash::launch<256>(a, st);
   }
 }
 
@@ -525,24 +561,29 @@ struct AttnArgs {
 
 constexpr int kBQ = 64, kBKV = 64, kAttnThreads = 256;  // 4 threads / query
 
-template <int DKP>   // dk padded up to 32, 64 or 128
+template <int DKP>   // dk padded up to 32, 64, 128, 192 or 256
 constexpr int attn_smem_floats() {
-  return 3 * 64 * (DKP + 1) + 64 * (kBKV + 1);
+  return 2 * 64 * (DKP + 1) + 64 * (flash::value_cols(DKP) + 1) +
+         64 * (kBKV + 1);
 }
 
-// grid: (ceil(N / 64), H, B * 2); blockIdx.z = b * 2 + direction.
+// grid: (ceil(N / 64), H * DKP / DV, B * 2); blockIdx.y = h * slices +
+// value slice; blockIdx.z = b * 2 + direction.
 // direction 0: out_vis = softmax(q_ir k_vis^T) v_vis; 1: out_ir, q_vis k_ir v_ir
 template <int DKP>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_f32_kernel(AttnArgs a) {
   extern __shared__ float smem[];
+  constexpr int DV = flash::value_cols(DKP);
   constexpr int LD = DKP + 1;          // padded rows: conflict-free columns
+  constexpr int LDV = DV + 1;
   float* Qs = smem;                     // [64][LD]
   float* Ks = Qs + kBQ * LD;            // [64][LD]
-  float* Vs = Ks + kBKV * LD;           // [64][LD]
-  float* Ps = Vs + kBKV * LD;           // [64][kBKV + 1]
+  float* Vs = Ks + kBKV * LD;           // [64][LDV]
+  float* Ps = Vs + kBKV * LDV;          // [64][kBKV + 1]
 
-  const int dir = blockIdx.z & 1, b = blockIdx.z >> 1, h = blockIdx.y;
+  const int dir = blockIdx.z & 1, b = blockIdx.z >> 1;
+  const int h = blockIdx.y / (DKP / DV), c0 = blockIdx.y % (DKP / DV) * DV;
   const int q0 = blockIdx.x * kBQ;
   const int tid = threadIdx.x, qr = tid / 4, sub = tid % 4;
   const int N = a.N, dk = a.dk;
@@ -558,7 +599,7 @@ attention_f32_kernel(AttnArgs a) {
   }
 
   constexpr int KPT = kBKV / 4;        // keys per thread: j = sub + 4 * jj
-  constexpr int DPT = DKP / 4;         // output dims per thread: sub + 4 * dd
+  constexpr int DPT = DV / 4;          // output dims per thread: sub + 4 * dd
   float acc[DPT];
 #pragma unroll
   for (int dd = 0; dd < DPT; ++dd) acc[dd] = 0.f;
@@ -568,9 +609,12 @@ attention_f32_kernel(AttnArgs a) {
     __syncthreads();                   // previous tile's K/V/P reads done
     for (int e = tid; e < kBKV * DKP; e += kAttnThreads) {
       const int r = e / DKP, d = e % DKP;
-      const bool in = k0 + r < N && d < dk;
-      Ks[r * LD + d] = in ? Kg[(size_t)(k0 + r) * dk + d] : 0.f;
-      Vs[r * LD + d] = in ? Vg[(size_t)(k0 + r) * dk + d] : 0.f;
+      Ks[r * LD + d] = k0 + r < N && d < dk ? Kg[(size_t)(k0 + r) * dk + d] : 0.f;
+    }
+    for (int e = tid; e < kBKV * DV; e += kAttnThreads) {
+      const int r = e / DV, d = e % DV;
+      const bool in = k0 + r < N && c0 + d < dk;
+      Vs[r * LDV + d] = in ? Vg[(size_t)(k0 + r) * dk + c0 + d] : 0.f;
     }
     __syncthreads();
 
@@ -608,7 +652,7 @@ attention_f32_kernel(AttnArgs a) {
     for (int j = 0; j < kn; ++j) {
       const float p = Ps[qr * (kBKV + 1) + j];
 #pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) acc[dd] += p * Vs[j * LD + sub + 4 * dd];
+      for (int dd = 0; dd < DPT; ++dd) acc[dd] += p * Vs[j * LDV + sub + 4 * dd];
     }
   }
   l += __shfl_xor_sync(0xffffffffu, l, 1);
@@ -619,7 +663,7 @@ attention_f32_kernel(AttnArgs a) {
   const float inv = 1.f / l;
 #pragma unroll
   for (int dd = 0; dd < DPT; ++dd) {
-    const int d = sub + 4 * dd;
+    const int d = c0 + sub + 4 * dd;
     if (d < dk) out[d] = acc[dd] * inv;
   }
 }
@@ -631,7 +675,8 @@ cudaError_t launch_attention_f32(const AttnArgs& a, cudaStream_t stream) {
       attention_f32_kernel<DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.N + kBQ - 1) / kBQ, a.H, a.B * 2);
+  dim3 grid((a.N + kBQ - 1) / kBQ, a.H * (DKP / flash::value_cols(DKP)),
+            a.B * 2);
   attention_f32_kernel<DKP><<<grid, kAttnThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -669,26 +714,31 @@ cudaError_t run_f32(const void* vis, const void* ir, const void* const* w,
   if (a.dk <= 32) return launch_attention_f32<32>(a, st);
   if (a.dk <= 64) return launch_attention_f32<64>(a, st);
   if (a.dk <= 128) return launch_attention_f32<128>(a, st);
+  if (a.dk <= 192) return launch_attention_f32<192>(a, st);
+  if (a.dk <= 256) return launch_attention_f32<256>(a, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // weights / biases: host arrays of six device pointers each, in the order
-// q_vis k_vis v_vis q_ir k_ir v_ir. qkv: a scratch of (6, B, H, N, dk) fp32
-// for fp32, or (6, B, H, N, dkp) bf16 for bf16 with dkp = dk rounded up to
-// 16, 32, 64 or 128 and the padding zeroed. bf16 needs D % 8 == 0 and every
+// q_vis k_vis v_vis q_ir k_ir v_ir. qkv: a scratch of (6, B, H, N, dkp):
+// fp32 with dkp = dk, or bf16 with dkp one of 16, 32, 64, 128, 192, 256 at
+// least dk and the padding zeroed (the caller picks it: BF16_DK_PADS in
+// kernels/cross_attention.py). dk <= 256. bf16 needs D % 8 == 0 and every
 // token and weight pointer 16-byte aligned (TMA).
 extern "C" int icaf_dual_cross_attention(
     const void* vis, const void* ir, const void* weights, const void* biases,
     void* qkv, void* out_vis, void* out_ir, int B, int N, int D, int H,
-    int is_bf16, void* stream) {
+    int dkp, int is_bf16, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
   const void* const* w = static_cast<const void* const*>(weights);
   const void* const* bs = static_cast<const void* const*>(biases);
   auto st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? run_bf16(vis, ir, w, bs, qkv, out_vis, out_ir, B, N, D, H, st)
-                 : run_f32(vis, ir, w, bs, qkv, out_vis, out_ir, B, N, D, H, st);
+  if (is_bf16)
+    return run_bf16(vis, ir, w, bs, qkv, out_vis, out_ir, B, N, D, H, dkp, st);
+  if (dkp != D / H) return cudaErrorInvalidValue;
+  return run_f32(vis, ir, w, bs, qkv, out_vis, out_ir, B, N, D, H, st);
 }
 
 extern "C" const char* icaf_error_string(int err) {

@@ -6,10 +6,11 @@
     model = hub.create("icafusion_l", weights="best.ckpt")
     engine = hub.pipeline("icafusion_s", weights="best.ckpt")  # ServingEngine
 
-The names are the JAX hub's. The DMFF ("tfb") models at every scale and
-icafusion_tiny build; the NiN and Add fusions (``*_nin``, ``*_add``) raise
-ROADMAP A5, the VGG16 and ResNet50 backbones A10. ``create`` returns the
-model holding its weights (the port keeps no separate variables).
+The names and their configs are the JAX hub's: ``icafusion_{n,s,m,l,x}``
+(DMFF), ``icafusion_{scale}_nin`` and ``icafusion_{scale}_add``,
+``icafusion_vgg16`` and ``icafusion_resnet50`` (DMFF) and ``icafusion_tiny``.
+``create`` returns the model holding its weights (the port keeps no
+separate variables).
 """
 
 from __future__ import annotations
@@ -29,20 +30,20 @@ def list_models():
 
 
 def model_config(name: str, nc: int = 3):
-    """The ModelConfig of a hub name; raises for a name not ported."""
+    """The ModelConfig of a hub name (the JAX hub's factories)."""
     from icafusion_tpu_torch.models import zoo
-    from icafusion_tpu_torch.utils.general import not_ported
 
     if name not in list_models():
         raise KeyError(f"unknown model {name!r}; see list_models()")
     kind = name[len("icafusion_"):]
     if kind == "tiny":
         return zoo.tiny_icafusion_config(nc=nc)
-    if kind in ("vgg16", "resnet50"):
-        not_ported(f"the {kind} backbone ({name})", "A10")
-    if kind.endswith(("_nin", "_add")):
-        not_ported(f"the {kind[2:]} fusion ({name})", "A5")
-    return zoo.icafusion_config(kind, nc=nc)
+    if kind == "vgg16":
+        return zoo.vgg16_icafusion_config(nc=nc)
+    if kind == "resnet50":
+        return zoo.resnet50_icafusion_config(nc=nc)
+    scale, _, fusion = kind.partition("_")
+    return zoo.icafusion_config(scale, nc=nc, fusion=fusion or "tfb")
 
 
 def create(name: str, nc: int = 3, weights: Optional[str] = None,

@@ -41,9 +41,9 @@ _I = ctypes.c_int
 # entry name -> argtypes (see each source's extern "C" block)
 SIGNATURES = {
     # vis, ir, weights[6], biases[6], qkv scratch, out_vis, out_ir,
-    # B, N, D, H, is_bf16, stream
+    # B, N, D, H, dkp (the scratch's row width), is_bf16, stream
     "icaf_dual_cross_attention": (_P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _P),
     # boxes, scores, mask scratch (B, K, nms.mask_words(K)) int64, keep, ok,
     # B, K, max_det, iou_thres, stream
     "icaf_greedy_nms": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),

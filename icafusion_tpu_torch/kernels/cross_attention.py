@@ -30,6 +30,11 @@ import torch
 from icafusion_tpu_torch.kernels import _build
 
 NAMES = ("q_vis", "k_vis", "v_vis", "q_ir", "k_ir", "v_ir")
+MAX_DK = 256          # the widest head the kernel is built for
+# the head widths the bf16 flash core is built for: q/k/v rows are padded
+# to the next one, the padding zero; the kernel takes the width chosen here
+# and refuses any other
+BF16_DK_PADS = (16, 32, 64, 128, 192, 256)
 
 
 def dual_cross_attention_reference(vis, ir, weights: Sequence[torch.Tensor],
@@ -64,6 +69,28 @@ def dual_cross_attention_reference(vis, ir, weights: Sequence[torch.Tensor],
     return out_vis, out_ir
 
 
+def check_args(D: int, num_heads: int, dtype) -> int:
+    """Raise unless the kernel takes tokens (B, N, D) of ``dtype`` with
+    ``num_heads`` heads, for any B and N: float32 or bfloat16, D % h == 0
+    and dk = D / h at most MAX_DK, and D % 8 == 0 in bfloat16 (TMA reads
+    rows of D values). Depends on the shape and dtype alone, not the
+    device. Returns the width of a row of the q/k/v scratch, which the
+    kernel is given: dk in float32, dk padded to BF16_DK_PADS in
+    bfloat16."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dual_cross_attention: dtype {dtype} not supported")
+    if num_heads < 1 or D % num_heads or D // num_heads > MAX_DK:
+        raise ValueError(f"dual_cross_attention: D={D}, h={num_heads}: "
+                         f"needs D % h == 0 and D / h <= {MAX_DK}")
+    dk = D // num_heads
+    if dtype == torch.float32:
+        return dk
+    if D % 8:
+        raise ValueError(f"dual_cross_attention: bfloat16 needs D % 8 == 0, "
+                         f"got D={D}")
+    return next(p for p in BF16_DK_PADS if p >= dk)
+
+
 def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
                          biases: Sequence[torch.Tensor], num_heads: int = 8):
     """Both attention directions, projections included. weights: six
@@ -78,11 +105,7 @@ def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
         raise ValueError(f"unsupported device {vis.device}")
     B, N, D = vis.shape
     dt = vis.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"dual_cross_attention: dtype {dt} not supported")
-    if D % num_heads or D // num_heads > 128:
-        raise ValueError(f"dual_cross_attention: D={D}, h={num_heads}: "
-                         "needs D % h == 0 and D / h <= 128")
+    dkp = check_args(D, num_heads, dt)
     if ir.shape != vis.shape or ir.dtype != dt or ir.device != vis.device:
         raise ValueError("dual_cross_attention: vis and ir must match")
     if len(weights) != 6 or len(biases) != 6:
@@ -97,19 +120,14 @@ def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
                              f"{w.dtype}, want ({D}, {D}) {dt}")
         if bias.shape != (D,) or bias.dtype != torch.float32:
             raise ValueError("dual_cross_attention: biases are (D,) float32")
-    dk = D // num_heads
     if dt == torch.bfloat16:
-        # TMA reads rows of D values: 16-byte aligned rows and bases
-        if D % 8 or any(t.data_ptr() % 16 for t in (vis, ir, *weights)):
-            raise ValueError("dual_cross_attention: bfloat16 needs D % 8 == 0 "
-                             "and 16-byte aligned tokens and weights")
-        # q/k/v rows padded to the flash kernel's width, the padding zero
-        dkp = next(p for p in (16, 32, 64, 128) if p >= dk)
-        alloc = torch.empty if dkp == dk else torch.zeros
-        qkv = alloc((6, B, num_heads, N, dkp), device=vis.device, dtype=dt)
-    else:
-        qkv = torch.empty((6, B, num_heads, N, dk), device=vis.device,
-                          dtype=torch.float32)
+        # TMA reads rows of D values from 16-byte aligned bases
+        if any(t.data_ptr() % 16 for t in (vis, ir, *weights)):
+            raise ValueError("dual_cross_attention: bfloat16 needs 16-byte "
+                             "aligned tokens and weights")
+    # q/k/v rows padded to the flash kernel's width, the padding zero
+    alloc = torch.empty if dkp == D // num_heads else torch.zeros
+    qkv = alloc((6, B, num_heads, N, dkp), device=vis.device, dtype=dt)
     out_vis = torch.empty_like(vis)
     out_ir = torch.empty_like(vis)
     w_ptrs = (ctypes.c_void_p * 6)(*[w.data_ptr() for w in weights])
@@ -118,7 +136,8 @@ def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
         err = _build.library().icaf_dual_cross_attention(
             vis.data_ptr(), ir.data_ptr(), ctypes.addressof(w_ptrs),
             ctypes.addressof(b_ptrs), qkv.data_ptr(), out_vis.data_ptr(),
-            out_ir.data_ptr(), B, N, D, num_heads, int(dt == torch.bfloat16),
+            out_ir.data_ptr(), B, N, D, num_heads, dkp,
+            int(dt == torch.bfloat16),
             _build.stream_handle(vis.device))
     _build.check(err, "dual_cross_attention")
     dual_cross_attention.launches += 1

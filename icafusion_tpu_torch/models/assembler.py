@@ -7,11 +7,9 @@ models/yolo_test.py:115-163 forward_once, :216-302 parse_model):
   width_multiple scaling, and the save-list of outputs later layers read;
 - a layer with ``from: -4`` reads the second (IR) image, so the layers
   before the first fusion form two independent towers;
-- modules come from a registry (``MODULE_BUILDERS``) instead of eval().
-
-This slice registers the modules of the serving and training paths: Conv,
-Bottleneck, C3, SPPF, Focus, Concat, Upsample, TransformerFusionBlock and
-Detect. Layers are registered as ``m{i}``, the flax names.
+- modules come from a registry (``MODULE_BUILDERS``) instead of eval();
+  a module missing from it raises "not ported". Layers are registered as
+  ``m{i}``, the flax names.
 """
 
 from __future__ import annotations
@@ -28,7 +26,7 @@ from torch import nn
 from icafusion_tpu_torch.config import FromSpec, ModelConfig
 from icafusion_tpu_torch.models.detect import (Detect, check_anchor_order,
                                                default_strides)
-from icafusion_tpu_torch.nn import fusion, layers
+from icafusion_tpu_torch.nn import backbones, fusion, layers
 from icafusion_tpu_torch.utils.general import make_divisible
 
 # first two resolved args are (c1, c2); c2 is width-scaled
@@ -47,6 +45,13 @@ MODULE_BUILDERS = {
         a[0], a[1] if len(a) > 1 else None, a[2] if len(a) > 2 else "nearest"),
     "TransformerFusionBlock": lambda a: fusion.TransformerFusionBlock(
         d_model=a[0], vert_anchors=a[1], horz_anchors=a[2]),
+    "Add": lambda a: fusion.Add(),
+    "Add2": lambda a: fusion.Add2(a[1]),
+    "NiNfusion": lambda a: fusion.NiNfusion(a[0], a[1]),
+    "DMAF": lambda a: fusion.DMAF(),
+    "VGGblock": lambda a: backbones.VGGblock(*a),
+    "ResNetblock": lambda a: backbones.ResNetblock(*a),
+    "ResNetlayer": lambda a: backbones.ResNetlayer(*a),
     "Detect": lambda a: Detect(*a),
 }
 
@@ -97,8 +102,22 @@ def resolve_model(cfg: ModelConfig) -> Tuple[Tuple[ResolvedLayer, ...],
             if m in _ABSORB_N:
                 args.insert(2, n)
                 n = 1
+        elif m == "ResNetlayer":     # args carry c1: [c1, c2, s, first, n]
+            c2 = args[1] if args[3] else 4 * args[1]
+        elif m == "VGGblock":        # [num_convs, c1, c2]
+            c2 = args[2]
         elif m == "Concat":
             c2 = sum(src_ch(x) for x in f)
+        elif m in ("Add", "DMAF"):
+            c2 = src_ch(f[0])
+            args = [c2]
+        elif m == "Add2":
+            c2 = src_ch(f[0])
+            args = [c2, args[1]]
+        elif m == "NiNfusion":
+            c1 = sum(src_ch(x) for x in f)
+            c2 = c1 // 2
+            args = [c1, c2, *args]
         elif m == "Detect":
             args.append(tuple(src_ch(x) for x in f))
             c2 = -1
@@ -137,10 +156,12 @@ class ICAFusionModel(nn.Module):
 
     def cast(self, dtype: torch.dtype) -> "ICAFusionModel":
         """Cast the parameters in place to a compute dtype, the way the JAX
-        modules cast their float32 parameters at use. LayerNorm and
-        BatchNorm parameters stay float32, and so do the six attention
-        projection biases (the fused kernel adds them in float32). Buffers
-        (BatchNorm statistics, Detect's anchors) stay float32."""
+        modules cast their float32 parameters at use (flax's ``dtype=``):
+        conv and linear weights and biases (VGG's and NiNfusion's convs
+        too) take it. LayerNorm and BatchNorm parameters (ResNet's
+        included) stay float32, and so do the six attention projection
+        biases (the fused kernel adds them in float32). Buffers (BatchNorm
+        statistics, Detect's anchors) stay float32."""
         keep = set()
         for m in self.modules():
             if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
@@ -201,8 +222,8 @@ def init_weights(model: ICAFusionModel,
     """Draw ``model``'s parameters anew from the distributions of the JAX
     package's initialisers, for training from scratch: every conv kernel
     U(+-1/sqrt(fan_in)) (its TORCH_CONV_INIT, torch's default), Detect's
-    biases U(+-1/sqrt(c_in)); the attention projections N(0, 0.001) with
-    zero biases; the MLP kernels U(+-1/sqrt(fan_in)) with zero biases;
+    and VGG's conv biases U(+-1/sqrt(fan_in)) (torch_bias_init); the
+    attention projections N(0, 0.001) with zero biases; the MLP kernels U(+-1/sqrt(fan_in)) with zero biases;
     norms at scale 1, bias 0 and BatchNorm statistics at mean 0, var 1;
     the residual gains 1, the pooling blend 0.5 and 0.5, the positional
     embeddings 0. (build_model's He-uniform draw is for serving.)"""

@@ -1,8 +1,14 @@
-"""Cross-modal fusion: the TransformerFusionBlock (DMFF) and its parts.
+"""Cross-modal fusion: the TransformerFusionBlock (DMFF) and its parts, and
+the simpler fusion families.
 
 Counterparts of the JAX package's nn/fusion.py (reference
-models/common.py:579-891), NCHW maps and (B, N, C) tokens:
+models/common.py:324-383, :579-891), NCHW maps and (B, N, C) tokens:
 
+- ``Add``: w * x0 + (1 - w) * x1, w = 0.5;
+- ``Add2``: x0 + x1[index], x1 a 2-tuple (DMAF's output);
+- ``NiNfusion``: concat, bias-free 1x1 conv, SiLU;
+- ``DMAF``: each stream's difference map gated by tanh of the spatial
+  mean of the other direction's; returns a 2-tuple;
 - ``adaptive_pool2d``: floor-mode pooling when the map is at least the
   anchor grid, true adaptive pooling otherwise;
 - ``LearnableWeights``: w1 * avg + w2 * max;
@@ -89,6 +95,53 @@ def resize_linear(x, out_h: int, out_w: int):
     wh = _linear_resize_matrix(h, out_h, x.device, x.dtype)
     ww = _linear_resize_matrix(w, out_w, x.device, x.dtype)
     return torch.einsum("bchw,Hh,Ww->bcHW", x, wh, ww)
+
+
+class Add(nn.Module):
+    """w * x0 + (1 - w) * x1 with the reference's w = 0.5
+    (common.py:324-331). The YAML argument, a channel count, goes unused."""
+
+    weight = 0.5
+
+    def forward(self, xs):
+        return xs[0] * self.weight + xs[1] * (1.0 - self.weight)
+
+
+class Add2(nn.Module):
+    """x0 + x1[index], where x1 is a 2-tuple (common.py:334-345)."""
+
+    def __init__(self, index: int = 0):
+        super().__init__()
+        self.index = index
+
+    def forward(self, xs):
+        return xs[0] + xs[1][self.index]
+
+
+class NiNfusion(nn.Module):
+    """concat(streams) -> 1x1 conv without bias -> SiLU (common.py:348-360);
+    the conv keeps the flax name ``conv``. The YAML's kernel and stride
+    arguments go unused, as in the JAX package's registry."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, 1, bias=False)
+
+    def forward(self, xs):
+        return F.silu(self.conv(torch.cat(list(xs), dim=1)))
+
+
+class DMAF(nn.Module):
+    """Differential modality-aware gating (common.py:363-383): returns
+    (x1 - x2) * tanh(mean(x2 - x1)), (x2 - x1) * tanh(mean(x1 - x2)), the
+    means spatial (dims 2, 3 in NCHW; the JAX package's NHWC takes 1, 2)."""
+
+    def forward(self, xs):
+        sub_vis = xs[0] - xs[1]
+        sub_ir = xs[1] - xs[0]
+        w_vis = torch.tanh(sub_vis.mean(dim=(2, 3), keepdim=True))
+        w_ir = torch.tanh(sub_ir.mean(dim=(2, 3), keepdim=True))
+        return sub_vis * w_ir, sub_ir * w_vis
 
 
 class Dropout(nn.Module):

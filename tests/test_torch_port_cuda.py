@@ -83,6 +83,53 @@ def test_attention_kernel_at_ragged_lengths(dev, N, D, dtype):
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
 
 
+# (N, D) of the fusion levels of every shipped config not held above:
+# n, s, m, x scales, VGG16 and ResNet50 at 640 (dk 8 to 256)
+SHIPPED_ATTENTION = [(400, 64), (256, 128), (100, 256), (400, 128),
+                     (256, 256), (100, 512), (400, 192), (256, 384),
+                     (100, 768), (400, 320), (256, 640), (100, 1280),
+                     (400, 512), (256, 1024), (100, 2048)]
+
+
+@pytest.mark.parametrize("N,D", SHIPPED_ATTENTION)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_at_every_shipped_width(dev, N, D, dtype):
+    """Heads of 8 to 256 values: above 128 (the x-scale P5 block, dk 160,
+    and ResNet50's P4 and P5, dk 128 and 256) the kernel splits the value
+    columns across blocks. The tolerances of the test above."""
+    args = _attention_args(2, N, D, dtype, dev, seed=D)
+    before = dual_cross_attention.launches
+    got = dual_cross_attention(*args)
+    assert dual_cross_attention.launches == before + 1
+    want = dual_cross_attention_reference(*args)
+    rtol, atol = ATTENTION_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (2, N, D)
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+
+
+def test_resnet50_transfusion_serves_at_full_width(dev):
+    """yolov5_ResNet50_Transfusion.yaml at 640, bf16, batch 1, seeded
+    weights: three attention launches (the P5 block's dk is 256), one NMS
+    and no fused conv (the towers' convs end in ReLU), finite detections."""
+    from icafusion_tpu_torch.config import load_model_config
+    model = build_model(load_model_config("yolov5_ResNet50_Transfusion.yaml"),
+                        generator=torch.Generator().manual_seed(0))
+    engine = ServingEngine(model, 640, 1, conf_thres=0.001, dtype="bfloat16",
+                           device=dev)
+    rng = np.random.default_rng(0)
+    rgb, ir = (rng.integers(0, 256, (1, 640, 640, 3), np.uint8)
+               for _ in range(2))
+    counts = (dual_cross_attention.launches, greedy_nms.launches,
+              conv3x3_bn_silu.launches)
+    out = engine.predict_arrays(rgb, ir)
+    assert (dual_cross_attention.launches - counts[0],
+            greedy_nms.launches - counts[1],
+            conv3x3_bn_silu.launches - counts[2]) == (3, 1, 0)
+    assert len(out) == 1 and out[0].shape[1] == 6
+    assert np.isfinite(out[0]).all()
+
+
 def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
     vis, ir, ws, bs = _attention_args(1, 16, 64, torch.float32, dev)
     with pytest.raises(TypeError):
@@ -91,6 +138,9 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
         dual_cross_attention(vis, ir, [w.t() for w in ws], bs)
     with pytest.raises(ValueError):
         dual_cross_attention(vis, ir, ws, [b.bfloat16() for b in bs])
+    vis, ir, ws, bs = _attention_args(1, 16, 2112, torch.float32, dev)
+    with pytest.raises(ValueError, match="D / h <= 256"):       # dk 264
+        dual_cross_attention(vis, ir, ws, bs)
 
 
 def _nms_inputs(B, K, dev, seed=0, pad=-1.0, degenerate=False):

@@ -1,6 +1,6 @@
-"""The port (icafusion_tpu_torch) and chip_smoke.py import no JAX, no flax
-and nothing of the JAX package, in a fresh interpreter; matplotlib only
-when a plot is drawn."""
+"""The port (icafusion_tpu_torch), chip_smoke.py and port_probes.py import
+no JAX, no flax and nothing of the JAX package, in a fresh interpreter;
+matplotlib only when a plot is drawn."""
 
 import pathlib
 import subprocess
@@ -25,7 +25,8 @@ serve = ("cli.detect", "data.decode", "data.streams", "hub", "ops.nms",
          "serve.batcher", "serve.engine", "serve.http_server", "train.fit",
          "utils.plots")
 assert all("icafusion_tpu_torch." + t in names for t in serve), names
-import chip_smoke
+assert "icafusion_tpu_torch.nn.backbones" in names, names
+import chip_smoke, port_probes
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu",
                                     "matplotlib"))
@@ -39,7 +40,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
-    assert int(n) >= 53, out.stdout      # every module was walked
+    assert int(n) >= 54, out.stdout      # every module was walked
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

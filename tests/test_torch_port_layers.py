@@ -97,10 +97,15 @@ def test_resolve_model_matches_jax(which):
 
 
 def test_unported_module_raises():
+    """A legacy layer the port lacks (ROADMAP A10) raises "not ported"; so
+    does a fusion kind neither package has."""
+    d = dict(nc=3, depth_multiple=1.0, width_multiple=1.0,
+             anchors=list(zoo.COCO_ANCHORS),
+             backbone=[[-1, 1, "GhostConv", [16, 3, 2]]], head=[])
     with pytest.raises(ValueError, match="not ported"):
-        assembler.build_model(load_model_config("yolov5n_NiNfusion.yaml"))
-    with pytest.raises(ValueError, match="not ported"):
-        zoo.icafusion_config("n", fusion="nin")
+        assembler.build_model(load_model_config(d))
+    with pytest.raises(ValueError, match="unknown fusion kind"):
+        zoo.icafusion_config("n", fusion="sum")
 
 
 def test_load_jax_variables_is_strict():

@@ -413,8 +413,8 @@ def test_http_cli_refuses_what_is_not_ported(tmp_path):
 def test_hub_matches_the_jax_hub(tmp_path):
     """The same names; a checkpoint of the JAX hub's icafusion_tiny gives
     the same decoded predictions in both hubs, and the port's pipeline
-    serves like a JAX engine on those weights; the names not ported raise
-    with their items."""
+    serves like a JAX engine on those weights; the NiN, Add, VGG16 and
+    ResNet50 names resolve to the JAX hub's graphs."""
     from icafusion_tpu import hub as jax_hub
     assert hub.list_models() == jax_hub.list_models()
     jmodel, v = jax_hub.create("icafusion_tiny", img_size=64)
@@ -448,10 +448,17 @@ def test_hub_matches_the_jax_hub(tmp_path):
     for a, b in zip(seeded.parameters(), again.parameters()):
         assert torch.equal(a, b)
     assert hub.create("icafusion_s").m0.conv.weight.shape[0] == 32
-    for name, item in (("icafusion_s_nin", "A5"), ("icafusion_l_add", "A5"),
-                       ("icafusion_vgg16", "A10"),
-                       ("icafusion_resnet50", "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            hub.create(name)
+    from icafusion_tpu.hub import _FACTORIES as jax_factories
+    from icafusion_tpu.models.assembler import resolve_model as jax_resolve
+    from icafusion_tpu_torch.models.assembler import resolve_model
+    for name in ("icafusion_s_nin", "icafusion_l_add", "icafusion_vgg16",
+                 "icafusion_resnet50"):
+        mine = resolve_model(hub.model_config(name))
+        theirs = jax_resolve(jax_factories[name](nc=3))
+        assert ([(r.i, r.f, r.module, r.args, r.c2) for r in mine[0]]
+                == [(r.i, r.f, r.module, r.args, r.c2) for r in theirs[0]])
+        assert mine[1] == theirs[1], name
+    nin = hub.create("icafusion_s_nin")
+    assert nin.m20.conv.weight.shape == (128, 256, 1, 1)
     with pytest.raises(KeyError):
         hub.create("yolov5s")

@@ -87,11 +87,29 @@ def test_speed_augment_and_study(setup, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--int8"], "A9"), (["--merge", "2"], "A10"),
-    (["--cfg", "zoo:nin:s"], "A5"), (["--cfg", "zoo:vgg16:tfb"], "A10")])
+    (["--int8"], "A9"), (["--merge", "2"], "A10")])
 def test_unported_flags_raise(setup, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         val.main(_args(setup, tmp_path, *extra))
+
+
+@pytest.mark.parametrize("spec", [
+    "zoo:nin:s", "zoo:vgg16:tfb", "zoo:add", "zoo:dmaf:n", "zoo:tiny:nin",
+    "zoo:tiny:dmaf", "zoo:vgg16", "zoo:resnet50", "zoo:resnet50:add"])
+def test_zoo_specs_match_the_jax_cli(spec):
+    """Every fusion family and backbone spec the JAX CLI takes resolves to
+    the JAX CLI's graph."""
+    from icafusion_tpu.cli._common import \
+        resolve_model_config as jax_resolve_config
+    from icafusion_tpu.models.assembler import resolve_model as jax_resolve
+    from icafusion_tpu_torch.models.assembler import resolve_model
+    mc, jmc = (_common.resolve_model_config(spec, nc=2),
+               jax_resolve_config(spec, nc=2))
+    assert mc.name == jmc.name and mc.nc == 2
+    mine, theirs = resolve_model(mc), jax_resolve(jmc)
+    assert ([(r.i, r.f, r.module, r.args, r.c2) for r in mine[0]]
+            == [(r.i, r.f, r.module, r.args, r.c2) for r in theirs[0]])
+    assert mine[1] == theirs[1]
 
 
 def test_model_loading(setup):
@@ -169,3 +187,33 @@ def test_single_cls_scores_collapsed_labels_unlike_jax(setup, tmp_path,
     assert port["nt"].tolist() == [8]             # one class, 8 labels
     assert jax_single["map50"] == pytest.approx(perfect / 2)
     assert jax_single["per_class"][1]["ap50"] == 0.0
+
+
+@pytest.mark.parametrize("spec", ["zoo:tiny:nin", "zoo:tiny:dmaf"])
+def test_val_and_detect_run_the_other_families(setup, tmp_path, spec):
+    """cli.val and cli.detect take a checkpoint of a non-DMFF model: no
+    TransformerFusionBlock row (mc_min_size 64), the same data."""
+    from pathlib import Path
+
+    import yaml
+
+    from icafusion_tpu_torch.cli import detect
+    mc = _common.resolve_model_config(spec, nc=3)
+    assert _common.mc_min_size(mc) == 64
+    model = build_model(mc, generator=torch.Generator().manual_seed(1))
+    ckpt = tmp_path / "family.ckpt"
+    ckpt.write_bytes(msgpack_serialize({**to_jax_variables(model),
+                                        "meta": {"epoch": 0}}))
+    args = _args(setup, tmp_path / "val", "--save-txt")
+    args[args.index("--weights") + 1] = str(ckpt)
+    args[args.index("--cfg") + 1] = spec
+    out = val.main(args)
+    assert out["seen"] == 3 and 0 <= out["map50"] <= 1
+    d = yaml.safe_load(Path(setup[0]).read_text())
+    root = Path(d["path"])
+    detect.main(["--weights", str(ckpt), "--cfg", spec, "--source1",
+                 str(root / d["val_rgb"]), "--source2",
+                 str(root / d["val_ir"]), "--img-size", "64",
+                 "--conf-thres", "0.001", "--save-txt", "--nosave",
+                 "--device", "cpu", "--save-dir", str(tmp_path / "det")])
+    assert len(list((tmp_path / "det").rglob("*.txt"))) == 3
