@@ -87,11 +87,28 @@ exit code is non-zero and the final line is never printed:
    bf16: finite predictions, one detection array, the same launch rule;
    (c) phase 6a's card-against-CPU Trainer check for the nin, add and
    dmaf zoo kinds and narrow VGG16 and ResNet50 configs, with the CPU's
-   own drift under one-ulp input changes printed beside.
+   own drift under one-ulp input changes printed beside;
+11. int8 W8A8 serving: (a) the int8 conv kernel against its plain version
+   at every quantized shape class of yolov5l-Transfusion 640, the rect
+   canvas's P3 and two yolov5x widths, at B = 1, 4 and 32, fp32 and bf16
+   (and NCHW input at B = 4): int32 accumulators equal, outputs within
+   1e-5 (fp32) and 3e-2 (bf16) of the largest, timed beside the bound,
+   the plain version, a cuDNN bf16 conv and, for 1x1, torch._int_mm;
+   (b) the flagship engine (phase 4b's weights) quantized by
+   ServingEngine.quantize on two seeded batches, three counted requests
+   (162 int8 launches a forward, 3 attention, 1 NMS, 0 fused convs),
+   every int8 conv of a forward held to the plain version on its own
+   input, and device busy beside the bf16 engine's; (c) cli.val --int8 on
+   trained s640 (extval, fp32) within 0.3 mAP@50 points of the JAX int8
+   record and of 7a, the same calibration served in bf16 (printed), and
+   trained n320 within 0.3 points of its JAX int8 record; (d) the HTTP
+   server --int8 calibrated on 16 extval pairs, then restarted from its
+   <weights>.calib, its responses against predict_arrays.
 
 Before the last line it prints one JSON object with each kernel's launches
-on the main path (phases 4b, 8 and 10a), error, device times (kernel,
-plain version and library yardstick, from torch.profiler) and bound; the
+on the main path (phases 4b, 8 and 10a; the int8 conv's in 11b), error,
+device times (kernel, plain version and library yardstick, from
+torch.profiler) and bound; the
 last line is {"ok": true, "device": {...}}. Should the profiler record no
 device time in two windows running, it is not used again in the run: later
 device times come from calls queued behind a sleep kernel between CUDA
@@ -120,7 +137,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}   # dense
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,   # dense
+              torch.int8: 1979e12}
 ATTN_SHAPES = ((400, 256), (256, 512), (100, 1024))   # (N, D) at P3/P4/P5
 # the fusion levels of every other shipped config at 640: the n, s, m and x
 # scales and the VGG16 and ResNet50 towers (dk 8 to 256), timed apart
@@ -377,13 +395,15 @@ def profile_calls(fn, n: int = 3):
 def profile_requests(engine, pair, wall_ms: float, n: int = 3):
     """Device time by kernel over n requests (torch.profiler / CUPTI), and
     the device's idle share of wall_ms, a request's unprofiled wall time
-    (the profiler's own host overhead stretches the profiled wall)."""
+    (the profiler's own host overhead stretches the profiled wall).
+    Returns (device busy ms a request, idle share), or None where the
+    profiler recorded nothing."""
     dev_us, wall_us = profile_calls(lambda: engine.predict_arrays(*pair), n)
     busy = sum(dev_us.values())
     if not busy:
         print("   device time by kernel: not measured (the profiler "
               "recorded no device events)")
-        return
+        return None
     groups = {"dual_cross_attention": ("projections_wgmma_kernel",
                                        "flash_attention_kernel",
                                        "projections_f32_kernel",
@@ -391,7 +411,8 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
               "greedy_nms": ("nms_mask_kernel", "nms_scan_kernel"),
               "conv3x3_bn_silu": ("conv3x3_bf16_nhwc_kernel",
                                   "conv3x3_bf16_nchw_kernel",
-                                  "conv3x3_f32_kernel", "pack_weights_kernel")}
+                                  "conv3x3_f32_kernel", "pack_weights_kernel"),
+              "conv_int8_bn_act": ("conv_int8_kernel",)}
     busy_ms = busy / n / 1e3
     print(f"   per request: device busy {busy_ms:.2f} ms; wall {wall_ms:.2f} ms"
           f" unprofiled -> idle share {1 - busy_ms / wall_ms:.3f} "
@@ -402,6 +423,7 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
               f"({100 * us / busy:.1f}% of device time)")
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"   {100 * v / busy:5.1f}%  {v / n / 1e3:7.3f} ms  {k[:90]}")
+    return busy_ms, 1 - busy_ms / wall_ms
 
 
 def first_winner_pool_grad(x: torch.Tensor, g: torch.Tensor, k: int,
@@ -823,7 +845,7 @@ def main(argv=None) -> int:
         done(t0)
 
     with tempfile.TemporaryDirectory() as tmp:
-        val_slice(Path(tmp))
+        s640_fp32_map50 = val_slice(Path(tmp))
 
     with tempfile.TemporaryDirectory() as tmp:
         served = serve_slice(Path(tmp), model,
@@ -843,6 +865,9 @@ def main(argv=None) -> int:
     train_families_card_vs_cpu()
     done(t0)
 
+    report["conv_int8_bn_act"], int8 = int8_slice(card, s640_fp32_map50)
+    launches["conv_int8_bn_act"] = int8["conv_int8_bn_act"]
+
     kernels = []
     for name, src, tpu in (
             ("dual_cross_attention",
@@ -851,7 +876,10 @@ def main(argv=None) -> int:
             ("greedy_nms", "icafusion_tpu_torch/csrc/greedy_nms.cu",
              "icafusion_tpu/kernels/nms.py:71"),
             ("conv3x3_bn_silu", "icafusion_tpu_torch/csrc/conv3x3_bn_silu.cu",
-             "icafusion_tpu/kernels/packed_conv.py:120")):
+             "icafusion_tpu/kernels/packed_conv.py:120"),
+            # no Pallas kernel: XLA's int8 conv of Conv._int8_conv
+            ("conv_int8_bn_act", "icafusion_tpu_torch/csrc/conv_int8.cu",
+             "icafusion_tpu/nn/layers.py:172")):
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1126,13 +1154,16 @@ def fit_slice(data_yaml: Path, project: Path):
           f"{[len(x) for x in out]}")
 
 
-def counted(fn):
+def counted(fn, int8: bool = False):
     """fn() with every wrapper's launch count set to 0 just before it; (its
-    result, the launches it made)."""
+    result, the launches it made): the three TPU kernels' wrappers, and
+    with int8 the int8 conv's too."""
+    from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
     from icafusion_tpu_torch.kernels.cross_attention import dual_cross_attention
     from icafusion_tpu_torch.kernels.nms import greedy_nms
     from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
-    wrappers = (dual_cross_attention, greedy_nms, conv3x3_bn_silu)
+    wrappers = (dual_cross_attention, greedy_nms, conv3x3_bn_silu) + (
+        (conv_int8_bn_act,) if int8 else ())
     for w in wrappers:
         w.launches = 0
     out = fn()
@@ -1170,7 +1201,8 @@ def coco_ground_truth(rgb_dir: Path, out: Path) -> Path:
 def val_slice(work: Path):
     """Phase 7: the validation path on trained yolov5s-Transfusion weights
     and the 141 extval pairs at 640, each run with the launches of the three
-    wrappers counted from zero; mAP@50 held to TRAINED_PARITY_640.json."""
+    wrappers counted from zero; mAP@50 held to TRAINED_PARITY_640.json.
+    Returns 7a's fp32 mAP@50."""
     from icafusion_tpu_torch.cli import val as cli_val
     from icafusion_tpu_torch.cli._common import load_model_for_inference
     from icafusion_tpu_torch.data.datasets import PairedDetectionDataset
@@ -1217,6 +1249,7 @@ def val_slice(work: Path):
         "--confusion", "--coco-gt", str(coco_gt)]))
     report("fp32", r, launches, {"JAX fp32": jax_rec["fp32"],
                                  "reference stack": ref_rec["fp32"]})
+    fp32_map50 = r["map50"]
     lines = (out_dir / "labels" / "result.txt").read_text().splitlines()
     per_image = sum(len(p.read_text().splitlines())
                     for p in (out_dir / "labels").glob("i*.txt"))
@@ -1272,6 +1305,7 @@ def val_slice(work: Path):
     assert pred["cuda"].shape == (2, TTA_CANDIDATES, 8)
     assert box_err <= 1e-2 and conf_err <= 1e-4, (box_err, conf_err)
     done(t0)
+    return fp32_map50
 
 
 
@@ -1753,8 +1787,9 @@ def l640_slice(work: Path):
     (artifacts/trained_l640, yolov5l-Transfusion at 640) over the 141
     extval pairs: (a) cli.detect fp32, every txt row equal to
     predict_arrays'; (b) cli.val fp32, mAP@50 within 0.3 points of
-    TRAINED_PARITY_L640.json's JAX and reference-stack records; (c) the
-    Evaluator in bf16 beside the JAX bf16 record (not gated). The
+    TRAINED_PARITY_L640.json's JAX and reference-stack records; (d)
+    cli.val --int8 fp32, within 0.3 points of the JAX int8 record; (c)
+    the Evaluator in bf16 beside the JAX bf16 record (not gated). The
     checkpoint and extval do not fit one chip copy beside the whole tree,
     so this runs apart from the default phases, in a copy without docs/,
     trained_n320 and trained_s640/stripped.ckpt."""
@@ -1820,6 +1855,24 @@ def l640_slice(work: Path):
     assert r["seen"] == len(files1) and launches == want, launches
     assert abs(r["map50"] - jax_rec["fp32"]) <= MAP50_GATE, r["map50"]
     assert abs(r["map50"] - ref) <= MAP50_GATE, r["map50"]
+    done(t0)
+
+    t0 = phase("9d cli.val --int8 trained l640 fp32")
+    link = work / "l640.ckpt"       # <weights>.calib is written beside it
+    link.symlink_to(L640 / "stripped.ckpt")
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        r, launches = counted(lambda: cli_val.main([
+            "--weights", str(link), "--cfg", L640_CFG, "--data", str(data),
+            "--img-size", "640", "--batch-size", str(VAL_BATCH), "--int8",
+            "--save-dir", str(work / "9d")]), int8=True)
+    rec_int8 = int8_record("l640")
+    print(f"   int8 fp32: mAP@50 {r['map50']:.5f} mAP {r['map']:.5f}; JAX "
+          f"int8 record {rec_int8:.5f} (delta "
+          f"{100 * (r['map50'] - rec_int8):+.3f} pts); {r['t_total_ms']:.2f} "
+          f"ms per image; launches {launches}")
+    assert launches["conv_int8_bn_act"] == INT8_CONVS_L * batches, launches
+    assert abs(r["map50"] - rec_int8) <= MAP50_GATE, r["map50"]
     done(t0)
 
     t0 = phase("9c Evaluator trained l640 bf16 (not gated)")
@@ -2067,6 +2120,472 @@ def train_families_card_vs_cpu():
         print(f"   {tag}:")
         steps = FAMILY_STEPS[tag]
         train_card_vs_cpu(cfg, steps, ulp_probe=sorted({steps, 2, 3}))
+
+
+# Phase 11: int8 W8A8 serving (utils/quantize.py, kernels/conv_int8.py).
+# The kernel's int32 accumulators equal the plain version's exactly: both
+# quantize with the same fp32 division and round half to even, and both
+# sum integers exactly. The epilogue repeats the plain version's fp32
+# operations in order (no FMA contraction), so fp32 outputs differ only by
+# the exponential inside SiLU (an ulp or two): 1e-5 relative to the
+# largest output. bf16: one rounding of those fp32 values, which that ulp
+# can move by one bf16 ulp (2^-8): 3e-2.
+INT8_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# (Cin, Cout, k, s, H, W) of the input map: the quantized shape classes of
+# yolov5l-Transfusion at 640, the 512 x 640 canvas's P3 and two yolov5x
+# widths (Cin up to 2560, Cout 1280)
+INT8_SHAPES = ((3, 64, 6, 2, 640, 640),       # the stems (K = 108)
+               (64, 128, 3, 2, 320, 320),     # P2 down-sample
+               (128, 64, 1, 1, 160, 160),     # the first C3's cv1
+               (64, 64, 1, 1, 160, 160),      # its bottlenecks' 1x1
+               (64, 64, 3, 1, 160, 160),      # and 3x3
+               (256, 128, 1, 1, 80, 80), (128, 128, 3, 1, 80, 80),
+               (512, 256, 1, 1, 40, 40), (256, 256, 3, 1, 40, 40),
+               (1024, 512, 1, 1, 20, 20), (512, 512, 3, 1, 20, 20),
+               (2048, 1024, 1, 1, 20, 20),    # SPPF's cv2
+               (256, 128, 1, 1, 64, 80),      # P3 of the 512 x 640 canvas
+               (128, 128, 3, 1, 64, 80),
+               (640, 1280, 3, 2, 40, 40),     # yolov5x's P5 down-sample
+               (2560, 1280, 1, 1, 20, 20))    # and its SPPF's cv2
+INT8_BATCHES = (1, BATCH, 32)
+# Phase 11 times each call by CUDA events around calls queued behind a
+# sleep (queued_ms), not by the profiler: a CUPTI window that records part
+# of its calls gave single int8 convs times below their bound in one run,
+# and a forward's sum multiplies such a class by up to 24.
+INT8_CONVS_L = 162     # yolov5l-Transfusion's Convs (165) less 3 feeders
+INT8_RECORDS = {"n320": "TRAINED_PARITY.json",
+                "s640": "TRAINED_PARITY_640.json",
+                "l640": "TRAINED_PARITY_L640.json"}
+
+
+def int8_record(which: str) -> float:
+    """The JAX package's int8 mAP@50 record (Detect-feeder skip)."""
+    rec = json.loads((REPO / INT8_RECORDS[which]).read_text())
+    return rec["ours"]["int8"]["ref_scored"]["map50"]
+
+
+def conv_out_hw(H, W, k, s):
+    p = 2 if k == 6 else k // 2
+    return (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+
+
+def int8_case(B, shape, dtype, gen, layout=torch.channels_last):
+    """(x, w8, s_in, s_w, bn, stride, padding) on the card: x with uneven
+    channel ranges, s_in its own per-channel absmax / 127 (so x8 spans
+    -127..127), random int8 weights, s_w scaling the sums to O(1), a
+    BatchNorm away from identity."""
+    Cin, Cout, k, s, H, W = shape
+    dev = torch.device("cuda")
+    x = torch.randn(B, Cin, H, W, device=dev, generator=gen)
+    x = x * (0.25 + torch.rand(Cin, 1, 1, device=dev, generator=gen))
+    x = x.to(dtype).contiguous(memory_format=layout)
+    s_in = (x.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-8)
+    w8 = torch.randint(-127, 128, (Cout, k, k, Cin), device=dev,
+                       generator=gen, dtype=torch.int8)
+    K = k * k * Cin
+    s_w = (0.5 + torch.rand(Cout, device=dev, generator=gen)) / (
+        2000 * math.sqrt(K))
+    rand = lambda: torch.randn(Cout, device=dev, generator=gen)
+    bn = (1 + 0.2 * rand(), 0.1 * rand(), 0.1 * rand(),
+          0.5 + torch.rand(Cout, device=dev, generator=gen), 1e-3)
+    return x, w8, s_in, s_w, bn, s, 2 if k == 6 else k // 2
+
+
+def int8_check(args, act: bool = True) -> float:
+    """The kernel against its plain version on the same inputs: the int32
+    accumulators equal, the outputs within INT8_TOL of the largest, in x's
+    dtype and channels_last. Returns the largest |difference|."""
+    from icafusion_tpu_torch.kernels.conv_int8 import (
+        conv_int8_bn_act, conv_int8_bn_act_reference)
+    x = args[0]
+    acc = conv_int8_bn_act(*args, act=act, epilogue=False)
+    racc = conv_int8_bn_act_reference(*args, act=act, epilogue=False)
+    out = conv_int8_bn_act(*args, act=act)
+    ref = conv_int8_bn_act_reference(*args, act=act)
+    torch.cuda.synchronize()
+    if not torch.equal(acc, racc):
+        bad = int((acc != racc).sum())
+        raise AssertionError(f"int8 conv {tuple(x.shape)} -> "
+                             f"{tuple(acc.shape)}: {bad} of {acc.numel()} "
+                             "accumulators differ from the plain version")
+    assert out.dtype == x.dtype and out.is_contiguous(
+        memory_format=torch.channels_last), (out.dtype, out.stride())
+    tol = INT8_TOL[x.dtype] * ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, (tuple(x.shape), tuple(out.shape), err, tol)
+    return err
+
+
+def int8_bound(B, shape, dtype):
+    Cin, Cout, k, s, H, W = shape
+    Ho, Wo = conv_out_hw(H, W, k, s)
+    sz = torch.finfo(dtype).bits // 8
+    macs = B * Ho * Wo * Cout * k * k * Cin
+    nbytes = (B * Cin * H * W * sz + Cout * k * k * Cin
+              + B * Cout * Ho * Wo * sz + 6 * Cout * 4 + Cin * 4)
+    return bound(2 * macs, nbytes, torch.int8)
+
+
+def int8_yardsticks(args):
+    """Yardsticks only (the port never calls them): (a) the float work the
+    int8 path replaces, one cuDNN bf16 conv on the dequantized BN-folded
+    weights with bias, then SiLU; (b) for a 1x1 conv, torch._int_mm on the
+    already quantized (B*H*W, Cin) x (Cin, Cout) int8 operands."""
+    from icafusion_tpu_torch.kernels.conv_int8 import (fold_epilogue,
+                                                       quantize_input)
+    F = torch.nn.functional
+    x, w8, s_in, s_w, bn, s, p = args
+    mult, add = fold_epilogue(s_w, bn)
+    w = (w8.permute(0, 3, 1, 2).float() * mult[:, None, None, None]).to(
+        torch.bfloat16)
+    xb, b = x.to(torch.bfloat16), add.to(torch.bfloat16)
+    cudnn = lambda: F.silu(F.conv2d(xb, w, b, s, p))
+    int_mm = None
+    Cout, k, _, Cin = w8.shape
+    if k == 1 and Cin % 8 == 0 and Cout % 8 == 0:
+        a = quantize_input(x, s_in).to(torch.int8).permute(0, 2, 3, 1)
+        a = a.reshape(-1, Cin)
+        bt = w8.reshape(Cout, Cin).t()
+        int_mm = lambda: torch._int_mm(a, bt)
+    return cudnn, int_mm
+
+
+def int8_kernel_slice(gen) -> None:
+    """11a: the int8 conv against its plain version at INT8_SHAPES, at B =
+    1, 4 and 32, in fp32 and bf16 (channels_last, and NCHW at B = 4), each
+    bf16 case timed beside its bound, the plain version and the
+    yardsticks."""
+    from icafusion_tpu_torch.kernels.conv_int8 import (
+        conv_int8_bn_act, conv_int8_bn_act_reference)
+    for shape in INT8_SHAPES:
+        for B in INT8_BATCHES:
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                args = int8_case(B, shape, dtype, gen)
+                errs[str(dtype)[6:]] = int8_check(args)
+                if B == BATCH:
+                    errs[str(dtype)[6:] + " NCHW"] = int8_check(int8_case(
+                        B, shape, dtype, gen, torch.contiguous_format))
+            errs["identity"] = int8_check(args, act=False)
+            ms = queued_ms(lambda: conv_int8_bn_act(*args))
+            plain = queued_ms(lambda: conv_int8_bn_act_reference(*args),
+                              iters=2, warmup=1)
+            cudnn, int_mm = int8_yardsticks(args)
+            lib = queued_ms(cudnn)
+            mm = f" _int_mm {queued_ms(int_mm):.4f}" if int_mm else ""
+            bnd, by = int8_bound(B, shape, torch.bfloat16)
+            print(f"   B={B:2d} {str(shape):30s}: accumulators equal; max "
+                  f"|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+                  f"; bf16 queued ms: kernel {ms:.4f} bound {bnd:.5f} ({by}) "
+                  f"plain {plain:.3f} cuDNN bf16 {lib:.4f}{mm}")
+            del args
+        torch.cuda.empty_cache()
+
+
+def int8_per_forward(engine, pair) -> dict:
+    """Every int8 conv of one forward of ``engine`` on ``pair``, on the
+    input it was given: the kernel against its plain version (the kernels
+    line's error), and device ms summed over the forward by shape class
+    (kernel, plain, cuDNN bf16 yardstick) beside the summed bound. Runs in
+    inference mode, as the captured inputs were made."""
+    from icafusion_tpu_torch.nn.layers import Conv
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, a: seen.append((mod, a[0])))
+        for m in engine.model.modules()
+        if isinstance(m, Conv) and m.w8 is not None]
+    with torch.inference_mode():
+        x, y = (torch.from_numpy(a).cuda().permute(0, 3, 1, 2).float()
+                / 255 for a in pair)
+        engine.model(x.to(engine.dtype), y.to(engine.dtype))
+        for h in hooks:
+            h.remove()
+        return _int8_per_forward(seen)
+
+
+def _int8_per_forward(seen) -> dict:
+    from icafusion_tpu_torch.kernels.conv_int8 import (
+        conv_int8_bn_act, conv_int8_bn_act_reference)
+    classes, err, layouts = {}, 0.0, set()
+    for mod, x in seen:
+        bn = mod.bn
+        args = (x, mod.w8, mod.s_in, mod.s_w,
+                (bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                 bn.eps), mod.conv.stride, mod.conv.padding)
+        act = isinstance(mod.act, torch.nn.SiLU)
+        err = max(err, int8_check(args, act))
+        layouts.add("NHWC" if x.is_contiguous(
+            memory_format=torch.channels_last) else "other")
+        Cout, k, _, Cin = mod.w8.shape
+        key = (Cin, Cout, k, mod.conv.stride[0], *x.shape[2:])
+        classes.setdefault(key, [args, act, 0])[2] += 1
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    by = {"bytes": 0.0, "operations": 0.0}     # the summed bound, by cause
+    for key, (args, act, n) in classes.items():
+        B = args[0].shape[0]
+        ms = queued_ms(lambda: conv_int8_bn_act(*args, act=act))
+        plain = queued_ms(lambda: conv_int8_bn_act_reference(*args, act=act),
+                          iters=2, warmup=1)
+        lib = queued_ms(int8_yardsticks(args)[0])
+        bnd, b = int8_bound(B, key, args[0].dtype)
+        by[b] += n * bnd
+        for k_, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                      ("bound_ms", bnd)):
+            tot[k_] += n * v
+        print(f"   x{n:2d} {str(key):32s}: kernel {ms:.4f} bound {bnd:.5f} "
+              f"({b}) plain {plain:.3f} cuDNN bf16 {lib:.4f} ms")
+    print(f"   {len(seen)} int8 convs of one forward ({len(classes)} shape "
+          f"classes, inputs {sorted(layouts)}): accumulators equal the plain "
+          f"version's, max |err| {err:.3g}; summed over the forward, queued "
+          f"ms: kernel {tot['ms']:.4f}, bound {tot['bound_ms']:.5f}, plain "
+          f"{tot['plain_ms']:.3f}, cuDNN bf16 conv + SiLU "
+          f"{tot['library_ms']:.4f}")
+    print(f"   the summed bound: {by['bytes']:.5f} ms bytes-bound, "
+          f"{by['operations']:.5f} ms operations-bound")
+    return {**tot, "max_abs_err": err, "bound_by": {max(by, key=by.get)},
+            "convs": len(seen)}
+
+
+def int8_serving_slice(card: str):
+    """11b: the flagship engine (yolov5l-Transfusion 640, batch 4, bf16,
+    phase 4b's seeded weights) quantized at the default scheme on two
+    seeded batches, three requests counted (int8 launches held to the
+    modules), every int8 conv of a forward against its plain version, and
+    device busy and idle share beside the bf16 engine's. Returns (the
+    kernels line's entry, the counted launches)."""
+    from icafusion_tpu_torch.models.assembler import build_model
+    from icafusion_tpu_torch.models.zoo import icafusion_config
+    from icafusion_tpu_torch.nn.layers import Conv
+    from icafusion_tpu_torch.serve.engine import ServingEngine
+    from icafusion_tpu_torch.utils.quantize import (detect_feeder_skip,
+                                                    int8_conv_names)
+    model = build_model(icafusion_config("l", nc=3, fusion="tfb"),
+                        generator=torch.Generator().manual_seed(0))
+    skip = detect_feeder_skip(model.cfg)
+    n_convs = sum(isinstance(m, Conv) for m in model.modules())
+    want_int8 = len(int8_conv_names(model, skip))
+    assert skip == ("m30/cv3", "m33/cv3", "m36/cv3"), skip
+    assert (n_convs, want_int8) == (165, INT8_CONVS_L), (n_convs, want_int8)
+    rng = np.random.default_rng(11)
+    batch = lambda n: tuple(rng.integers(0, 256, (n, 640, 640, 3), np.uint8)
+                            for _ in range(2))
+    engines = {"bf16": ServingEngine(model, 640, BATCH, conf_thres=0.001),
+               "int8": ServingEngine(model, 640, BATCH, conf_thres=0.001)}
+    t = time.perf_counter()
+    assert engines["int8"].quantize([batch(BATCH), batch(BATCH)]) is False
+    calib_s = time.perf_counter() - t
+    n_int8 = sum(isinstance(m, Conv) and m.w8 is not None
+                 for m in engines["int8"].model.modules())
+    assert n_int8 == want_int8, n_int8
+    pairs = [batch(n) for n in (BATCH, 3, BATCH)]
+    engine = engines["int8"]
+    engine.predict_arrays(*pairs[0])                  # warm-up
+    torch.cuda.synchronize()
+    results, launches = counted(
+        lambda: [engine.predict_arrays(*p) for p in pairs], int8=True)
+    want = {"dual_cross_attention": 3 * len(pairs), "greedy_nms": len(pairs),
+            "conv3x3_bn_silu": 0, "conv_int8_bn_act": n_int8 * len(pairs)}
+    assert launches == want, (launches, want)
+    for (rgb, _), out in zip(pairs, results):
+        assert len(out) == len(rgb)
+        for x in out:
+            assert x.ndim == 2 and x.shape[1] == 6 and len(x) <= 300
+            assert np.isfinite(x).all()
+    print(f"   calibrated (2 batches of {BATCH}) and quantized in "
+          f"{calib_s:.1f} s: {n_int8} int8 convs of {n_convs} (Detect "
+          f"feeders {', '.join(skip)} in bf16); launches in {len(pairs)} "
+          f"requests {launches}; detections per image "
+          f"{[[len(x) for x in out] for out in results]}")
+    measured = {}
+    for tag, eng in engines.items():
+        eng.predict_arrays(*pairs[0])
+        steady = []
+        for _ in range(STEADY_REQUESTS):
+            t = time.perf_counter()
+            eng.predict_arrays(*pairs[0])
+            steady.append(1e3 * (time.perf_counter() - t))
+        wall = float(np.median(steady))
+        print(f"   {tag} engine: {STEADY_REQUESTS} requests of {BATCH}, "
+              f"median {wall:.2f} ms -> {1e3 * BATCH / wall:.1f} pairs/s")
+        measured[tag] = profile_requests(eng, pairs[0], wall)
+    if all(measured.values()):
+        print(f"   device busy a request: int8 {measured['int8'][0]:.2f} ms "
+              f"(idle share {measured['int8'][1]:.3f}), bf16 "
+              f"{measured['bf16'][0]:.2f} ms (idle share "
+              f"{measured['bf16'][1]:.3f}); {card} (not gated)")
+    del engines["bf16"]
+    torch.cuda.empty_cache()
+    entry = int8_per_forward(engine, pairs[0])
+    assert entry["convs"] == n_int8, entry["convs"]
+    return entry, launches
+
+
+def int8_val_slice(work: Path, fp32_map50: float) -> None:
+    """11c: trained s640 on extval through cli.val --int8 (fp32), held
+    within MAP50_GATE of the JAX int8 record and of phase 7a's fp32 run;
+    the same calibration served in bf16 by the Evaluator (printed); trained
+    n320 cli.val --int8 held to its JAX int8 record. Each checkpoint is a
+    symlink in ``work``, so the .calib files land there."""
+    import copy as copy_
+
+    from icafusion_tpu_torch.cli import val as cli_val
+    from icafusion_tpu_torch.cli._common import load_model_for_inference
+    from icafusion_tpu_torch.data.datasets import PairedDetectionDataset
+    from icafusion_tpu_torch.data.loader import PairedLoader
+    from icafusion_tpu_torch.eval.evaluator import Evaluator
+    from icafusion_tpu_torch.utils.quantize import (calibration_key,
+                                                    detect_feeder_skip,
+                                                    int8_conv_names,
+                                                    load_calibration,
+                                                    quantize_model)
+
+    def data_yaml(root: Path, name: str) -> Path:
+        path = work / name
+        path.write_text(f"path: {root}\nval_rgb: visible/val\n"
+                        "val_ir: infrared/val\nnc: 3\n"
+                        "names: ['red', 'green', 'blue']\n")
+        return path
+
+    for which, ckpt, cfg, root, size, batch in (
+            ("s640", S640 / "stripped.ckpt", S640_CFG, S640 / "extval", 640,
+             VAL_BATCH),
+            ("n320", REPO / "artifacts" / "trained_n320" / "stripped.ckpt",
+             "yolov5n_Transfusion.yaml",
+             REPO / "artifacts" / "trained_n320" / "data", 320, VAL_BATCH)):
+        t0 = phase(f"11c cli.val --int8 trained {which} fp32")
+        link = work / f"{which}.ckpt"
+        link.symlink_to(ckpt)
+        data = data_yaml(root, f"{which}.yaml")
+        argv = ["--weights", str(link), "--cfg", cfg, "--data", str(data),
+                "--img-size", str(size), "--batch-size", str(batch),
+                "--int8", "--save-dir", str(work / f"11c_{which}")]
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            r, launches = counted(lambda: cli_val.main(argv), int8=True)
+        assert "calibration persisted" in said.getvalue(), said.getvalue()
+        assert Path(str(link) + ".calib").is_file()
+        _, model = load_model_for_inference(cfg, str(ckpt), nc=3)
+        skip = detect_feeder_skip(model.cfg)
+        n_int8 = len(int8_conv_names(model, skip))
+        batches = -(-r["seen"] // batch)
+        rec = int8_record(which)
+        print(f"   int8 fp32: mAP@50 {r['map50']:.5f} mAP {r['map']:.5f} "
+              f"over {r['seen']} pairs; JAX int8 record {rec:.5f} (delta "
+              f"{100 * (r['map50'] - rec):+.3f} pts)"
+              + (f", phase 7a fp32 {fp32_map50:.5f} (delta "
+                 f"{100 * (r['map50'] - fp32_map50):+.3f} pts)"
+                 if which == "s640" else "")
+              + f"; {r['t_total_ms']:.2f} ms per image; launches {launches}")
+        assert launches["conv_int8_bn_act"] == n_int8 * batches, (
+            launches, n_int8, batches)
+        assert abs(r["map50"] - rec) <= MAP50_GATE, (which, r["map50"])
+        if which == "s640":
+            assert abs(r["map50"] - fp32_map50) <= MAP50_GATE, r["map50"]
+            key = calibration_key(str(link), extra={
+                "imgsz": size, "calib_set": str(root / "visible" / "val"),
+                "batch": batch})
+            calib = load_calibration(str(link) + ".calib", key)
+            assert calib is not None
+            q = quantize_model(copy_.deepcopy(model), calib, skip=skip)
+            ds = PairedDetectionDataset(str(root / "visible" / "val"),
+                                        str(root / "infrared" / "val"), size,
+                                        nc=3)
+            rb = Evaluator(q, nc=3, dtype="bfloat16").run(
+                PairedLoader(ds, batch).val_batches(), size)
+            print(f"   int8 bf16 (the same calibration, not gated): mAP@50 "
+                  f"{rb['map50']:.5f} mAP {rb['map']:.5f}; "
+                  f"{rb['t_total_ms']:.2f} ms per image")
+        done(t0)
+
+
+def int8_http_slice(work: Path) -> None:
+    """11d: the HTTP server with --int8 over s640 on 512 x 640, calibrated
+    on 16 extval pairs: the first start writes <weights>.calib in ``work``,
+    the second loads it; POSTs of 8 pairs give as many detections each as
+    predict_arrays of the same letterboxed pair on the same engine."""
+    import base64
+    import http.client
+    import threading
+
+    from icafusion_tpu_torch.data.augment import letterbox
+    from icafusion_tpu_torch.serve import http_server
+
+    link = work / "s640_http.ckpt"
+    link.symlink_to(S640 / "stripped.ckpt")
+    ext = S640 / "extval"
+    args = http_server.parse_args([
+        "--weights", str(link), "--cfg", S640_CFG, "--img-size", "512x640",
+        "--batch-size", "1", "--int8", "--calib-rgb",
+        str(ext / "visible" / "val"), "--calib-ir",
+        str(ext / "infrared" / "val")])
+    said = []
+    for _ in range(2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            engine, batcher = http_server.build(args)
+        said.append(out.getvalue())
+        if len(said) == 1:
+            batcher.close()
+    n_calib = min(16, len(extval_files()[0]))
+    assert (f"{n_calib} real pairs" in said[0]
+            and "calibrated fresh" in said[0]), said
+    assert "persisted calibration loaded" in said[1], said[1]
+    assert Path(str(link) + ".calib").is_file()
+    files1, files2 = (f[:8] for f in extval_files())
+    srv = http_server.make_server(engine, batcher, ["red", "green", "blue"],
+                                  host="127.0.0.1", port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    counts = []
+    try:
+        for a, b in zip(files1, files2):
+            body = json.dumps({k: base64.b64encode(Path(f).read_bytes())
+                               .decode() for k, f in (("rgb", a), ("ir", b))})
+            conn = http.client.HTTPConnection("127.0.0.1",
+                                              srv.server_address[1],
+                                              timeout=300)
+            conn.request("POST", "/v1/detect", body,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            conn.close()
+            assert resp.status == 200, (resp.status, data[:200])
+            counts.append(len(json.loads(data)))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        batcher.close()
+    direct = []
+    for a, b in zip(files1, files2):
+        ia, ib = read_rgb(a), read_rgb(b)
+        lb = [letterbox(im, RECT, auto=False, scaleup=True)[0][None]
+              for im in (ia, ib)]
+        direct.append(len(engine.predict_arrays(
+            *lb, orig_hw=[ia.shape[:2]])[0]))
+    print(f"   first start: calibrated on {n_calib} real pairs, "
+          f"{link.name}.calib "
+          f"written; second start: loaded; detections a POST {counts}, "
+          f"predict_arrays {direct}")
+    assert counts == direct, (counts, direct)
+
+
+def int8_slice(card: str, fp32_map50: float):
+    """Phase 11; returns (the int8 conv's kernels-line entry, the launches
+    of 11b's counted requests)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = phase("11a int8 conv vs plain (B = 1, 4, 32; fp32, bf16)")
+    int8_kernel_slice(gen)
+    done(t0)
+    t0 = phase("11b int8 serving: yolov5l-Transfusion 640, b4, bf16")
+    entry, launches = int8_serving_slice(card)
+    done(t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        int8_val_slice(Path(tmp), fp32_map50)
+        t0 = phase("11d HTTP server --int8: s640 on 512 x 640")
+        int8_http_slice(Path(tmp))
+        done(t0)
+    return entry, launches
 
 
 if __name__ == "__main__":

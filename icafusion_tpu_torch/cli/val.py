@@ -5,8 +5,10 @@ cli/val.py (reference test.py:370-438):
         --cfg yolov5s_Transfusion.yaml --data flir_align_3class.yaml \\
         [--task val|test|speed|study] [--rect] [--save-txt] [--kaist-ann ...]
 
-It evaluates on the CUDA card (--device cpu for the CPU). --int8 and a
---merge other than 0 are not ported and raise with their ROADMAP items.
+It evaluates on the CUDA card (--device cpu for the CPU). --int8
+evaluates the int8 W8A8 model, calibrated on the first two val batches
+(and persisted beside a checkpoint file as <weights>.calib). A --merge
+other than 0 is not ported and raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -56,7 +58,10 @@ def parse_args(argv=None):
     ap.add_argument("--save-json", action="store_true",
                     help="dump COCO-format detections json (test.py:185-194)")
     ap.add_argument("--int8", action="store_true",
-                    help="W8A8 quantized evaluation (not ported)")
+                    help="W8A8 quantized evaluation: calibrate on the first "
+                         "two val batches at --img-size (persisted as "
+                         "<weights>.calib and reused), Detect feeders kept "
+                         "in float")
     ap.add_argument("--merge", default="0", metavar="K",
                     help="stream-merge the first K RGB/IR layer pairs (not "
                          "ported: 0 only)")
@@ -85,6 +90,48 @@ def _dataset(nc: int, rgb: str, ir: str, img_size: int,
     return PairedDetectionDataset(rgb, ir, img_size=img_size,
                                   hyp=load_hyp_config(), nc=nc,
                                   single_cls=single_cls)
+
+
+def quantize_from_dir(args, ev, nc: int, rgb: str, ir: str) -> None:
+    """Quantize the Evaluator's model in place (the JAX package's
+    cli/val.py _quantize_from_dir): calibrate on the first two val batches
+    at args.img_size, normalised as the Evaluator normalises them. When
+    --weights is a file, the calibration is persisted beside it
+    (<weights>.calib, keyed by the checkpoint's sha1, the scheme, the image
+    size, the calibration set and the batch) and loaded on later runs."""
+    from icafusion_tpu_torch.data.loader import PairedLoader
+    from icafusion_tpu_torch.utils.quantize import (calibrate,
+                                                    calibrate_cached,
+                                                    calibration_key,
+                                                    detect_feeder_skip,
+                                                    quantize_model)
+
+    def calib_batches():
+        loader = PairedLoader(_dataset(nc, rgb, ir, args.img_size),
+                              batch_size=args.batch_size, shuffle=False)
+        batches = []
+        for batch in loader.val_batches():
+            batches.append((batch["rgb"].astype(np.float32) / 255.0,
+                            batch["ir"].astype(np.float32) / 255.0))
+            if len(batches) >= 2:
+                break
+        print(f"int8: calibrated on {len(batches)} batches")
+        return batches
+
+    w = Path(args.weights)
+    if w.is_file():
+        key = calibration_key(str(w), extra={"imgsz": args.img_size,
+                                             "calib_set": rgb,
+                                             "batch": args.batch_size})
+        calib, hit = calibrate_cached(ev.model, calib_batches,
+                                      str(w) + ".calib", key)
+        print(f"int8: loaded persisted calibration ({w}.calib)" if hit else
+              f"int8: calibration persisted to {w}.calib")
+    else:
+        calib = calibrate(ev.model, calib_batches())
+    skip = detect_feeder_skip(ev.model.cfg)
+    print(f"int8: Detect-feeder convs kept in float ({', '.join(skip)})")
+    quantize_model(ev.model, calib, skip=skip)
 
 
 def run_study(args, ev, nc: int, rgb: str, ir: str):
@@ -123,10 +170,8 @@ def main(argv=None):
     from icafusion_tpu_torch.config import load_data_config
     from icafusion_tpu_torch.data.loader import PairedLoader
     from icafusion_tpu_torch.eval.evaluator import Evaluator
-    from icafusion_tpu_torch.utils.general import not_ported, resolve_device
+    from icafusion_tpu_torch.utils.general import resolve_device
 
-    if args.int8:
-        not_ported("--int8 (W8A8 quantized evaluation)", "A9")
     device = resolve_device(args.device, "cli.val")
     data_cfg = load_data_config(args.data)
     _, model = load_model_for_inference(args.cfg, args.weights,
@@ -146,6 +191,8 @@ def main(argv=None):
                    iou_thres=args.iou_thres, single_cls=args.single_cls,
                    augment=args.augment, confluence=args.confluence,
                    confluence_p=args.confluence_p, device=device)
+    if args.int8:
+        quantize_from_dir(args, ev, data_cfg.nc, rgb, ir)
     if args.task == "study":
         return run_study(args, ev, data_cfg.nc, rgb, ir)
     loader = PairedLoader(_dataset(data_cfg.nc, rgb, ir, args.img_size,

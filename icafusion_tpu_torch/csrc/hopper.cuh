@@ -129,6 +129,21 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b, m16n8k32, s8 in, s32 accumulation (wrapping, no saturation).
+// a: rows g and g + 8, bytes 4t..4t+3 (a0, a1) and 16+4t.. (a2, a3) of the
+// 16 x 32 tile; b: column g, bytes 4t.. (b0) and 16+4t.. (b1) of the
+// 32 x 8 tile; d: rows g and g + 8, columns 2t and 2t + 1 (g = lane / 4,
+// t = lane % 4).
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 16 bytes global -> shared, zero-filled when !valid (src is then not read).
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool valid) {

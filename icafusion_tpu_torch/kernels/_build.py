@@ -29,7 +29,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("dual_cross_attention.cu", "greedy_nms.cu", "conv3x3_bn_silu.cu")
+SOURCES = ("dual_cross_attention.cu", "greedy_nms.cu", "conv3x3_bn_silu.cu",
+           "conv_int8.cu")
 HEADERS = ("hopper.cuh",)   # included by the sources: part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,6 +39,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # entry name -> argtypes (see each source's extern "C" block)
 SIGNATURES = {
     # vis, ir, weights[6], biases[6], qkv scratch, out_vis, out_ir,
@@ -51,6 +53,11 @@ SIGNATURES = {
     # nhwc, stream
     "icaf_conv3x3_bn_silu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P),
+    # x, its strides (b, c, h, w), w8, s_in, s_w, gamma, beta, mean, var,
+    # eps, out, B, Cin, H, W, Cout, kh, kw, stride_h, stride_w, pad_h,
+    # pad_w, Ho, Wo, is_bf16, act, epilogue, stream
+    "icaf_conv_int8": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                       ctypes.c_float, _P, *(_I,) * 16, _P),
 }
 
 

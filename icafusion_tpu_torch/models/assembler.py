@@ -161,7 +161,8 @@ class ICAFusionModel(nn.Module):
         too) take it. LayerNorm and BatchNorm parameters (ResNet's
         included) stay float32, and so do the six attention projection
         biases (the fused kernel adds them in float32). Buffers (BatchNorm
-        statistics, Detect's anchors) stay float32."""
+        statistics, Detect's anchors, and the int8 path's ``w8`` in int8
+        with its ``s_in`` and ``s_w`` in float32) keep their dtypes."""
         keep = set()
         for m in self.modules():
             if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):

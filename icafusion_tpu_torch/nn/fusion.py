@@ -16,6 +16,8 @@ models/common.py:324-383, :579-891), NCHW maps and (B, N, C) tokens:
   cross-attention kernel (kernels/cross_attention.py) in eval mode, the
   differentiable einsum path with dropout in train mode, output
   projections;
+- ``QLinear``: the output projections and MLP layers, nn.Linear that
+  serves from weight-only int8 once utils/quantize.py fills it;
 - ``CrossTransformerBlock``: 8 learnable residual gains, the shared MLP
   LayerNorm, exact GELU, ``loops_num`` parameter-shared iterations;
 - ``TransformerFusionBlock``: pool to the anchor grid, positional embedding,
@@ -189,6 +191,28 @@ class LearnableWeights(nn.Module):
         return x1 * self.w1.to(x1.dtype) + x2 * self.w2.to(x2.dtype)
 
 
+class QLinear(nn.Linear):
+    """nn.Linear that computes with weight-only int8 weights once
+    utils/quantize.quantize_model(..., fusion_dense=True) has filled the
+    buffers ``w8`` (out, in) int8 and ``s_w`` (out,) float32 (the JAX
+    package's _QDense, nn/fusion.py:147-174): y = x (w8 s_w)^T + b, the
+    dequantized weight formed in the layer's dtype, the product a plain
+    matmul as the JAX package leaves it to XLA. The buffers are None until
+    then."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(in_features, out_features)
+        self.register_buffer("w8", None)
+        self.register_buffer("s_w", None)
+
+    def forward(self, x):
+        if self.w8 is None:
+            return super().forward(x)
+        dt = self.weight.dtype
+        return F.linear(x, self.w8.to(dt) * self.s_w.to(dt)[:, None],
+                        self.bias)
+
+
 class CrossAttention(nn.Module):
     """Dual cross-attention (common.py:590-687): each modality's values are
     attended by the other modality's queries. Returns [out_vis, out_ir]."""
@@ -201,8 +225,8 @@ class CrossAttention(nn.Module):
             self.add_module(name, nn.Linear(d_model, d_model))
         self.ln_vis = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ln_ir = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.out_vis = nn.Linear(d_model, d_model)
-        self.out_ir = nn.Linear(d_model, d_model)
+        self.out_vis = QLinear(d_model, d_model)
+        self.out_ir = QLinear(d_model, d_model)
         self.attn_drop = Dropout(attn_pdrop)
         self.resid_drop = Dropout(resid_pdrop)
 
@@ -268,8 +292,8 @@ class CrossTransformerBlock(nn.Module):
         self.crossatt = CrossAttention(d_model, h, attn_pdrop, resid_pdrop)
         self.mlp_ln = nn.LayerNorm(d_model, eps=LN_EPS)
         for m in ("mlp_vis", "mlp_ir"):
-            self.add_module(f"{m}_fc1", nn.Linear(d_model, block_exp * d_model))
-            self.add_module(f"{m}_fc2", nn.Linear(block_exp * d_model, d_model))
+            self.add_module(f"{m}_fc1", QLinear(d_model, block_exp * d_model))
+            self.add_module(f"{m}_fc2", QLinear(block_exp * d_model, d_model))
         self.coefficients = nn.Parameter(torch.ones(8))
         self.mlp_drop = Dropout(resid_pdrop)
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
 from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
 
 BN_EPS = 1e-3
@@ -59,8 +60,17 @@ class Conv(nn.Module):
     In eval mode a 3x3, stride 1, pad 1, ungrouped 64 -> 64 Conv with SiLU
     runs as one fused kernel (kernels/packed_conv.py: conv3x3_bn_silu) with
     the BatchNorm folded into a per-channel scale and bias; on the CPU that
-    call takes its plain version. The choice depends on the shape and the
-    mode only."""
+    call takes its plain version.
+
+    int8 W8A8 (utils/quantize.py, the JAX package's Conv._int8_conv): once
+    ``quantize_model`` has filled the buffers ``w8`` (Cout, kh, kw, Cin)
+    int8, ``s_w`` (Cout,) and ``s_in`` (Cin,) float32, an eval-mode forward
+    runs kernels/conv_int8.py: conv_int8_bn_act (quantize x, int8 conv,
+    dequantize, BatchNorm, activation) before any other branch; a train-mode
+    forward never quantizes. The buffers are None until then, so an
+    unquantized model's state_dict is unchanged. While ``record`` is set
+    (utils/quantize.calibrate), a float forward keeps the running maximum
+    over batches of its input's per-channel |x| in ``absmax``."""
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
                  act=True):
@@ -78,8 +88,23 @@ class Conv(nn.Module):
                       and self.conv.kernel_size == (3, 3)
                       and self.conv.stride == (1, 1)
                       and self.conv.padding == (1, 1))
+        for name in ("w8", "s_w", "s_in"):
+            self.register_buffer(name, None)
+        self.record = False
+        self.absmax: Optional[torch.Tensor] = None
 
     def forward(self, x):
+        if self.w8 is not None and not self.training:
+            bn = self.bn
+            return conv_int8_bn_act(
+                x, self.w8, self.s_in, self.s_w,
+                (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps),
+                self.conv.stride, self.conv.padding,
+                act=isinstance(self.act, nn.SiLU))
+        if self.record:
+            a = x.detach().abs().amax(dim=(0, 2, 3)).float()
+            self.absmax = a if self.absmax is None else torch.maximum(
+                self.absmax, a)
         if self.fused and not self.training:
             bn = self.bn
             scale = bn.weight.float() * torch.rsqrt(bn.running_var.float()

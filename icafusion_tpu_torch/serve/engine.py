@@ -8,9 +8,9 @@ the device; the valid rows come back per image and are unpadded, and
 optionally rescaled to the native image size.
 
 ``predict_paths`` decodes image files (data/decode.py) and serves them,
-pipelined; ``warmup`` runs one batch; ``throughput`` times steady serving.
-Data-parallel serving, stream merging and int8 are not ported (ROADMAP A8,
-A10, A9).
+pipelined; ``warmup`` runs one batch; ``throughput`` times steady serving;
+``quantize`` switches to int8 W8A8 serving (utils/quantize.py).
+Data-parallel serving and stream merging are not ported (ROADMAP A8, A10).
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ class ServingEngine:
     apart, and an explicit count raises (ROADMAP A10).
 
     The engine may be called from several threads: a lock lets one of them
-    launch the device work of a batch at a time."""
+    launch the device work of a batch at a time. It keeps a reference to
+    ``model``, whose float32 weights ``quantize`` reads."""
 
     def __init__(self, model: ICAFusionModel, img_size: Union[int, Sequence[int]] = 640,
                  batch_size: int = 32, conf_thres: float = 0.25,
@@ -61,6 +62,7 @@ class ServingEngine:
         self.conf_thres, self.iou_thres, self.max_det = (conf_thres, iou_thres,
                                                          max_det)
         self.dtype = getattr(torch, dtype)
+        self._float_model = model
         self.model = copy.deepcopy(model).cast(self.dtype).to(self.device)
         self._lock = threading.Lock()
 
@@ -117,8 +119,44 @@ class ServingEngine:
         z = np.zeros((B, H, W, 3), np.uint8)
         self._finalize(*self._dispatch(z, z))
 
-    def quantize(self, *args, **kwargs):
-        not_ported("int8 W8A8 serving (ServingEngine.quantize)", "A9")
+    def quantize(self, calib_pairs: Sequence = (), cache: Optional[str] = None,
+                 cache_key: Optional[dict] = None) -> bool:
+        """Switch to int8 W8A8 serving (utils/quantize.py), as the JAX
+        engine's quantize does: calibrate this engine's model (its dtype,
+        its device) on ``calib_pairs``, (rgb, ir) batches of (n, H, W, 3)
+        uint8 letterboxed pairs, divided by 255; quantize with the
+        Detect-feeder skip; serve from the int8 model.
+
+        cache: path of a calibration artifact. When it exists and carries
+        the key (scheme, merge 0, this canvas and ``cache_key``), the
+        calibration forward is skipped; on a miss the engine calibrates and
+        writes it. Returns True on a hit. An engine already quantized
+        raises: its model no longer runs the float convs that calibration
+        records."""
+        from icafusion_tpu_torch.utils.quantize import (
+            calibrate, calibrate_cached, calibration_key, detect_feeder_skip,
+            is_quantized, quantize_model)
+        if is_quantized(self.model):
+            raise RuntimeError("ServingEngine.quantize: the engine is "
+                               "already quantized")
+
+        def batches():
+            return [(np.asarray(r, np.float32) / 255.0,
+                     np.asarray(i, np.float32) / 255.0)
+                    for r, i in calib_pairs]
+
+        hit = False
+        with self._lock:
+            if cache:
+                key = calibration_key(extra={"canvas": list(self.canvas),
+                                             **(cache_key or {})})
+                calib, hit = calibrate_cached(self.model, batches, cache, key)
+            else:
+                calib = calibrate(self.model, batches())
+            model = quantize_model(copy.deepcopy(self._float_model), calib,
+                                   skip=detect_feeder_skip(self.model.cfg))
+            self.model = model.cast(self.dtype).to(self.device)
+        return hit
 
     def predict_arrays(self, rgb: np.ndarray, ir: np.ndarray,
                        orig_hw: Optional[Sequence] = None) -> List[np.ndarray]:

@@ -11,7 +11,13 @@ decode gets 400 with {"error": ...}. GET /v1/stats reports how requests
 coalesced (requests, batches, bucket_counts). Any other path is 404.
 
     python -m icafusion_tpu_torch.serve.http_server --weights best.ckpt \\
-        --cfg zoo:tfb:s --img-size 512x640 [--device cpu]
+        --cfg zoo:tfb:s --img-size 512x640 [--device cpu] \\
+        [--int8 --calib-rgb DIR --calib-ir DIR]
+
+--int8 serves the int8 W8A8 model (ServingEngine.quantize), calibrated on
+up to 16 real pairs of --calib-rgb/--calib-ir, or on noise with a warning
+where they are not given; with a checkpoint file the calibration is
+persisted as <weights>.calib and a later start loads it.
 
 Without a batcher (make_server(engine)), each request thread decodes its
 pair and serves it through ServingEngine.predict_paths.
@@ -122,7 +128,15 @@ def parse_args(argv=None):
                          "for peers to coalesce (0: dispatch at once)")
     ap.add_argument("--names", nargs="*", default=None)
     ap.add_argument("--int8", action="store_true",
-                    help="W8A8 serving (not ported)")
+                    help="serve W8A8-quantized. Calibrate on real "
+                         "representative images via --calib-rgb/--calib-ir; "
+                         "without them calibration falls back to random "
+                         "noise, which mis-scales the per-channel activation "
+                         "ranges and degrades accuracy: smoke tests only")
+    ap.add_argument("--calib-rgb", default=None,
+                    help="folder/glob of RGB images for int8 calibration")
+    ap.add_argument("--calib-ir", default=None,
+                    help="folder/glob of IR images for int8 calibration")
     ap.add_argument("--merge", default="auto", metavar="K",
                     help="stream merging: 0 or auto only (the port runs the "
                          "streams apart)")
@@ -134,19 +148,71 @@ def parse_args(argv=None):
     return args
 
 
+def calibration_pairs(args):
+    """[(rgb, ir)]: one batch of up to 16 letterboxed pairs of --calib-rgb
+    and --calib-ir, or, without them, one batch of --batch-size noise
+    pairs (with the JAX server's warning)."""
+    import numpy as np
+    S = args.img_size
+    if args.calib_rgb and args.calib_ir:
+        import cv2
+
+        from icafusion_tpu_torch.data.augment import letterbox
+        from icafusion_tpu_torch.data.datasets import discover_images
+        pairs = []
+        for p1, p2 in zip(discover_images(args.calib_rgb)[:16],
+                          discover_images(args.calib_ir)[:16]):
+            a, b = (cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+                    for p in (p1, p2))
+            pairs.append((letterbox(a, S, scaleup=True)[0],
+                          letterbox(b, S, scaleup=True)[0]))
+        print(f"int8: calibrating on {len(pairs)} real pairs")
+        return [(np.stack([p[0] for p in pairs]),
+                 np.stack([p[1] for p in pairs]))]
+    rng = np.random.default_rng(0)
+    H, W = (S, S) if isinstance(S, int) else S
+    print("int8: WARNING - noise calibration (no --calib-rgb/ir); "
+          "per-channel activation scales will not match real traffic, "
+          "accuracy degrades. Smoke-test use only.")
+    return [tuple(rng.integers(0, 255, (args.batch_size, H, W, 3), np.uint8)
+                  for _ in range(2))]
+
+
+def quantize_engine(engine, args) -> bool:
+    """ServingEngine.quantize from the arguments; with a checkpoint file,
+    the calibration is cached as <weights>.calib under its sha1 and the
+    calibration set. Returns whether the cache was hit."""
+    import time
+    from pathlib import Path
+
+    from icafusion_tpu_torch.utils.quantize import calibration_key
+    t0 = time.time()
+    calib = calibration_pairs(args)
+    if Path(args.weights).is_file():
+        sha = calibration_key(args.weights)["ckpt_sha1"]
+        hit = engine.quantize(calib, cache=args.weights + ".calib",
+                              cache_key={"ckpt_sha1": sha,
+                                         "calib_set": args.calib_rgb
+                                         or "noise"})
+    else:
+        hit = engine.quantize(calib)
+    print(f"int8: engine quantized in {time.time() - t0:.1f}s "
+          f"({'persisted calibration loaded' if hit else 'calibrated fresh'})")
+    return hit
+
+
 def build(args):
     """(engine, batcher) of parsed arguments, every bucket warmed up."""
     from icafusion_tpu_torch.cli._common import load_model_for_inference
     from icafusion_tpu_torch.serve.batcher import MicroBatcher
     from icafusion_tpu_torch.serve.engine import ServingEngine
-    from icafusion_tpu_torch.utils.general import not_ported
 
-    if args.int8:
-        not_ported("--int8 (W8A8 serving)", "A9")
     merge = 0 if str(args.merge) == "auto" else args.merge
     _, model = load_model_for_inference(args.cfg, args.weights, merge=merge)
     engine = ServingEngine(model, img_size=args.img_size,
                            batch_size=args.batch_size, device=args.device)
+    if args.int8:
+        quantize_engine(engine, args)
     batcher = MicroBatcher(engine, max_wait_ms=args.max_wait_ms)
     print(f"warming up buckets {batcher.buckets} ...")
     batcher.warmup()

@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke
 
+from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
 from icafusion_tpu_torch.kernels.cross_attention import (
     dual_cross_attention, dual_cross_attention_reference)
 from icafusion_tpu_torch.kernels.nms import greedy_nms, greedy_nms_reference
@@ -339,6 +340,71 @@ def test_conv_module_launches_the_kernel(dev, dtype):
     with torch.no_grad():
         strided(x.float())
     assert conv3x3_bn_silu.launches == before + 1
+
+
+INT8_CARD_SHAPES = [
+    (3, 16, 6, 2, 64, 80),        # the stem: K = 108, byte loads of w8
+    (32, 48, 1, 1, 20, 13),       # 1x1, ragged M
+    (64, 64, 3, 1, 17, 9),        # 3x3 s1
+    (48, 200, 3, 2, 21, 30),      # 3x3 s2, Cout past one 128 tile
+    (2560, 136, 1, 1, 5, 7)]      # Cin of yolov5x's SPPF: K of 40 steps
+
+
+@pytest.mark.parametrize("shape", INT8_CARD_SHAPES)
+@pytest.mark.parametrize("layout", [torch.channels_last,
+                                    torch.contiguous_format])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_kernel_matches_reference(dev, shape, layout, dtype):
+    """The int32 accumulators equal the plain version's and the outputs lie
+    within chip_smoke.INT8_TOL of the largest, with SiLU and identity."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = chip_smoke.int8_case(2, shape, dtype, gen, layout)
+    before = conv_int8_bn_act.launches
+    chip_smoke.int8_check(args)
+    chip_smoke.int8_check(args, act=False)
+    assert conv_int8_bn_act.launches == before + 4
+
+
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w8, s_in, s_w, bn, s, p = chip_smoke.int8_case(
+        1, (16, 32, 3, 1, 8, 8), torch.float32, gen)
+    with pytest.raises(TypeError):
+        conv_int8_bn_act(x.half(), w8, s_in, s_w, bn, s, p)
+    with pytest.raises(ValueError):
+        conv_int8_bn_act(x, w8.float(), s_in, s_w, bn, s, p)
+    with pytest.raises(ValueError):          # grouped: w8 has Cin / 2
+        conv_int8_bn_act(x, w8[..., :8].contiguous(), s_in, s_w, bn, s, p)
+    with pytest.raises(ValueError):
+        conv_int8_bn_act(x, w8, s_in.double(), s_w, bn, s, p)
+    with pytest.raises(ValueError):
+        conv_int8_bn_act(x, w8, s_in, s_w, None, s, p)
+    with pytest.raises(ValueError):
+        conv_int8_bn_act(x, w8.cpu(), s_in, s_w, bn, s, p)
+
+
+def test_int8_model_launches_the_kernel_per_quantized_conv(dev):
+    """The tiny model quantized on the CPU with the Detect-feeder skip and
+    moved to the card: one launch per int8 Conv a forward (84), none of
+    the fused conv, finite decoded predictions."""
+    from icafusion_tpu_torch.utils.quantize import (calibrate,
+                                                    detect_feeder_skip,
+                                                    quantize_model)
+    model = build_model(tiny_icafusion_config(),
+                        generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    pair = [rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+            for _ in range(2)]
+    quantize_model(model, calibrate(model, [pair]),
+                   skip=detect_feeder_skip(model.cfg))
+    model = model.to(dev)
+    before = conv_int8_bn_act.launches
+    with torch.inference_mode():
+        x, y = (torch.from_numpy(a).to(dev).permute(0, 3, 1, 2)
+                for a in pair)
+        pred = model(x, y)
+    assert conv_int8_bn_act.launches == before + 84
+    assert torch.isfinite(pred).all()
 
 
 @pytest.mark.parametrize("fmt", [torch.contiguous_format,

@@ -234,8 +234,13 @@ def test_warmup_throughput_and_unported_options(engines):
         ServingEngine(model, 64, 1, device="cpu", merge_streams=merge)
     with pytest.raises(NotImplementedError, match="A10"):
         ServingEngine(model, 64, 1, device="cpu", merge_streams=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        engine.quantize([])
+    # int8 serving (A9) works: a copy quantizes on one batch and serves
+    q = ServingEngine(engine._float_model, CANVAS, 2, dtype="float32",
+                      device="cpu")
+    assert q.quantize([_pairs(2, 9)]) is False
+    assert all(d.shape[1] == 6 for d in q.predict_arrays(*_pairs(2, 10)))
+    with pytest.raises(ValueError, match="at least one batch"):
+        ServingEngine(model, 64, 1, device="cpu").quantize([])
 
 
 # ---- MicroBatcher ---------------------------------------------------------
@@ -399,8 +404,9 @@ def test_http_bad_body_and_unknown_path(server):
 def test_http_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--weights", str(tmp_path / "w.ckpt"), "--cfg", "zoo:tiny",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="A9"):
-        http_server.build(http_server.parse_args(base + ["--int8"]))
+    args = http_server.parse_args(base + ["--int8", "--calib-rgb", "a",
+                                          "--calib-ir", "b"])
+    assert args.int8 and (args.calib_rgb, args.calib_ir) == ("a", "b")
     with pytest.raises(NotImplementedError, match="A10"):
         http_server.build(http_server.parse_args(base + ["--merge", "3"]))
     args = http_server.parse_args(base + ["--img-size", "512x640"])

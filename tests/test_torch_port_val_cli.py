@@ -1,8 +1,9 @@
 """python -m icafusion_tpu_torch.cli.val on the CPU: every task (val, speed,
 study) and the dumps and suites (--rect, --save-txt, --save-json,
 --coco-gt, --kaist-ann, --confusion, --augment), on a tiny synthetic set
-with a checkpoint the port wrote; the flags that are not ported raise with
-their ROADMAP items, and without a card the CLI needs --device cpu."""
+with a checkpoint the port wrote; --int8 with its persisted calibration;
+the flags that are not ported raise with their ROADMAP items, and without
+a card the CLI needs --device cpu."""
 
 import json
 import sys
@@ -86,11 +87,30 @@ def test_speed_augment_and_study(setup, tmp_path):
     assert (tmp_path / "study" / "study.png").is_file()
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--int8"], "A9"), (["--merge", "2"], "A10")])
+@pytest.mark.parametrize("extra,item", [(["--merge", "2"], "A10")])
 def test_unported_flags_raise(setup, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         val.main(_args(setup, tmp_path, *extra))
+
+
+def test_int8_calibrates_then_loads_the_persisted_calibration(setup, tmp_path,
+                                                              capsys):
+    """--int8: the first run calibrates on the val batches and writes
+    <weights>.calib beside a copy of the checkpoint; a second run loads it
+    and scores the same."""
+    import shutil
+    ckpt = tmp_path / "w.ckpt"
+    shutil.copy(setup[1], ckpt)
+    argv = _args(setup, tmp_path / "a", "--int8")
+    argv[argv.index("--weights") + 1] = str(ckpt)
+    first = val.main(argv)
+    said = capsys.readouterr().out
+    assert "calibrated on 2 batches" in said and "persisted to" in said
+    assert (tmp_path / "w.ckpt.calib").is_file()
+    second = val.main(argv)
+    assert "loaded persisted calibration" in capsys.readouterr().out
+    assert first["seen"] == second["seen"] == 3
+    assert first["map50"] == second["map50"]
 
 
 @pytest.mark.parametrize("spec", [
