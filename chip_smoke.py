@@ -93,12 +93,17 @@ exit code is non-zero and the final line is never printed:
    canvas's P3 and two yolov5x widths, at B = 1, 4 and 32, fp32 and bf16
    (and NCHW input at B = 4): int32 accumulators equal, outputs within
    1e-5 (fp32) and 3e-2 (bf16) of the largest, timed beside the bound,
-   the plain version, a cuDNN bf16 conv and, for 1x1, torch._int_mm;
+   the plain version, a cuDNN bf16 conv and, for 1x1, torch._int_mm, with
+   the path each class takes (kernels/conv_int8.py: plan);
    (b) the flagship engine (phase 4b's weights) quantized by
    ServingEngine.quantize on two seeded batches, three counted requests
    (162 int8 launches a forward, 3 attention, 1 NMS, 0 fused convs),
    every int8 conv of a forward held to the plain version on its own
-   input, and device busy beside the bf16 engine's; (c) cli.val --int8 on
+   input, each class's input layout and path (all but the stems on the
+   tma path from a channels_last map, asserted), the summed time beside
+   the first design's and cuDNN's, and device busy beside the bf16
+   engine's; (c)
+   cli.val --int8 on
    trained s640 (extval, fp32) within 0.3 mAP@50 points of the JAX int8
    record and of 7a, the same calibration served in bf16 (printed), and
    trained n320 within 0.3 points of its JAX int8 record; (d) the HTTP
@@ -412,7 +417,8 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
               "conv3x3_bn_silu": ("conv3x3_bf16_nhwc_kernel",
                                   "conv3x3_bf16_nchw_kernel",
                                   "conv3x3_f32_kernel", "pack_weights_kernel"),
-              "conv_int8_bn_act": ("conv_int8_kernel",)}
+              "conv_int8_bn_act": ("conv_int8_kernel",
+                                   "conv_int8_tma_kernel")}
     busy_ms = busy / n / 1e3
     print(f"   per request: device busy {busy_ms:.2f} ms; wall {wall_ms:.2f} ms"
           f" unprofiled -> idle share {1 - busy_ms / wall_ms:.3f} "
@@ -2164,6 +2170,26 @@ def int8_record(which: str) -> float:
     return rec["ours"]["int8"]["ref_scored"]["map50"]
 
 
+# The first int8 conv design (one mma.sync kernel for every shape, which
+# quantized x in its operand load) and its cuDNN yardstick, summed over the
+# 162 int8 convs of a yolov5l-Transfusion 640 forward at batch 4 in bf16
+# (11b on an NVIDIA H100 80GB HBM3 at 700.00 W, queued ms), and its 11c
+# cli.val --int8 fp32 mAP@50: the numbers the current kernel is printed
+# beside.
+INT8_FORWARD_FIRST_MS = 15.0017
+INT8_FORWARD_CUDNN_FIRST_MS = 5.2440
+INT8_MAP50_FIRST = {"s640": 0.96649, "n320": 0.97869}
+
+
+def plan_text(pl) -> str:
+    """The path a conv takes, and for the tma path its tile, groups,
+    splits and shared memory."""
+    if pl.path != "tma":
+        return "direct"
+    return (f"tma {pl.tile[0]}x{pl.tile[1]} G{pl.groups} S{pl.splits} "
+            f"{pl.smem // 1024}K")
+
+
 def conv_out_hw(H, W, k, s):
     p = 2 if k == 6 else k // 2
     return (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
@@ -2256,7 +2282,7 @@ def int8_kernel_slice(gen) -> None:
     bf16 case timed beside its bound, the plain version and the
     yardsticks."""
     from icafusion_tpu_torch.kernels.conv_int8 import (
-        conv_int8_bn_act, conv_int8_bn_act_reference)
+        conv_int8_bn_act, conv_int8_bn_act_reference, plan_for)
     for shape in INT8_SHAPES:
         for B in INT8_BATCHES:
             errs = {}
@@ -2274,8 +2300,10 @@ def int8_kernel_slice(gen) -> None:
             lib = queued_ms(cudnn)
             mm = f" _int_mm {queued_ms(int_mm):.4f}" if int_mm else ""
             bnd, by = int8_bound(B, shape, torch.bfloat16)
-            print(f"   B={B:2d} {str(shape):30s}: accumulators equal; max "
-                  f"|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+            path = plan_text(plan_for(*args[:2], *args[5:]))
+            print(f"   B={B:2d} {str(shape):30s} {path}: accumulators equal;"
+                  f" max |err| "
+                  f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
                   f"; bf16 queued ms: kernel {ms:.4f} bound {bnd:.5f} ({by}) "
                   f"plain {plain:.3f} cuDNN bf16 {lib:.4f}{mm}")
             del args
@@ -2305,7 +2333,7 @@ def int8_per_forward(engine, pair) -> dict:
 
 def _int8_per_forward(seen) -> dict:
     from icafusion_tpu_torch.kernels.conv_int8 import (
-        conv_int8_bn_act, conv_int8_bn_act_reference)
+        conv_int8_bn_act, conv_int8_bn_act_reference, plan_for)
     classes, err, layouts = {}, 0.0, set()
     for mod, x in seen:
         bn = mod.bn
@@ -2314,14 +2342,20 @@ def _int8_per_forward(seen) -> dict:
                  bn.eps), mod.conv.stride, mod.conv.padding)
         act = isinstance(mod.act, torch.nn.SiLU)
         err = max(err, int8_check(args, act))
-        layouts.add("NHWC" if x.is_contiguous(
-            memory_format=torch.channels_last) else "other")
+        layout = "NHWC" if x.is_contiguous(
+            memory_format=torch.channels_last) else "other"
+        layouts.add(layout)
         Cout, k, _, Cin = mod.w8.shape
+        path = plan_for(x, mod.w8, mod.conv.stride, mod.conv.padding).path
+        # every int8 conv but the stem is served by the tma path from a
+        # channels_last map
+        assert Cin == 3 or (path == "tma" and layout == "NHWC"), (
+            Cin, Cout, k, tuple(x.shape), x.stride(), path)
         key = (Cin, Cout, k, mod.conv.stride[0], *x.shape[2:])
-        classes.setdefault(key, [args, act, 0])[2] += 1
+        classes.setdefault(key, [args, act, 0, layout])[2] += 1
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     by = {"bytes": 0.0, "operations": 0.0}     # the summed bound, by cause
-    for key, (args, act, n) in classes.items():
+    for key, (args, act, n, layout) in classes.items():
         B = args[0].shape[0]
         ms = queued_ms(lambda: conv_int8_bn_act(*args, act=act))
         plain = queued_ms(lambda: conv_int8_bn_act_reference(*args, act=act),
@@ -2332,8 +2366,10 @@ def _int8_per_forward(seen) -> dict:
         for k_, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                       ("bound_ms", bnd)):
             tot[k_] += n * v
-        print(f"   x{n:2d} {str(key):32s}: kernel {ms:.4f} bound {bnd:.5f} "
-              f"({b}) plain {plain:.3f} cuDNN bf16 {lib:.4f} ms")
+        print(f"   x{n:2d} {str(key):32s} {layout} "
+              f"{plan_text(plan_for(*args[:2], *args[5:]))}: kernel {ms:.4f} "
+              f"bound {bnd:.5f} ({b}) plain {plain:.3f} cuDNN bf16 "
+              f"{lib:.4f} ms")
     print(f"   {len(seen)} int8 convs of one forward ({len(classes)} shape "
           f"classes, inputs {sorted(layouts)}): accumulators equal the plain "
           f"version's, max |err| {err:.3g}; summed over the forward, queued "
@@ -2342,6 +2378,12 @@ def _int8_per_forward(seen) -> dict:
           f"{tot['library_ms']:.4f}")
     print(f"   the summed bound: {by['bytes']:.5f} ms bytes-bound, "
           f"{by['operations']:.5f} ms operations-bound")
+    ratio = tot["ms"] / INT8_FORWARD_FIRST_MS
+    print(f"   summed int8 conv time of the forward: {tot['ms']:.4f} ms "
+          f"against the first design's {INT8_FORWARD_FIRST_MS} ms "
+          f"({ratio:.3f}x) and cuDNN bf16 conv + SiLU "
+          f"{tot['library_ms']:.4f} ms here (in the first design's run: "
+          f"{INT8_FORWARD_CUDNN_FIRST_MS} ms)")
     return {**tot, "max_abs_err": err, "bound_by": {max(by, key=by.get)},
             "convs": len(seen)}
 
@@ -2417,6 +2459,7 @@ def int8_serving_slice(card: str):
     torch.cuda.empty_cache()
     entry = int8_per_forward(engine, pairs[0])
     assert entry["convs"] == n_int8, entry["convs"]
+    entry["device_busy"] = measured      # (busy ms, idle share) by engine
     return entry, launches
 
 
@@ -2471,7 +2514,8 @@ def int8_val_slice(work: Path, fp32_map50: float) -> None:
         rec = int8_record(which)
         print(f"   int8 fp32: mAP@50 {r['map50']:.5f} mAP {r['map']:.5f} "
               f"over {r['seen']} pairs; JAX int8 record {rec:.5f} (delta "
-              f"{100 * (r['map50'] - rec):+.3f} pts)"
+              f"{100 * (r['map50'] - rec):+.3f} pts); the first int8 conv "
+              f"design's {INT8_MAP50_FIRST[which]:.5f}"
               + (f", phase 7a fp32 {fp32_map50:.5f} (delta "
                  f"{100 * (r['map50'] - fp32_map50):+.3f} pts)"
                  if which == "s640" else "")

@@ -64,6 +64,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// Barrier `id` (1..15) over the first `count` threads of the block (a
+// multiple of 32), leaving the block's other warps out.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -77,6 +83,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -237,6 +254,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 128, s32, wrapping) += a (64 x 32 s8) * b (32 x 128 s8), both
+// K-major in shared memory: rows of 128 bytes = 128 K values, 128-byte
+// swizzle. The 8-bit forms take no negate or transpose immediates: both
+// operands are K-major. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---- small helpers ---------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -252,13 +301,14 @@ __device__ __forceinline__ uint32_t pick4(uint32_t v0, uint32_t v1,
 
 // ---- host: tensor maps -----------------------------------------------------
 
-// A bf16 tensor map with the 128-byte swizzle (box dim 0 is 64 elements =
-// 128 bytes) and zero fill outside the tensor. dims and box innermost first;
-// strides in bytes for dims 1.. rank-1.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
-                                   int rank, const cuuint64_t* dims,
-                                   const cuuint64_t* strides,
-                                   const cuuint32_t* box) {
+// A tensor map of `dtype` elements with the 128-byte swizzle (box dim 0
+// spans 128 bytes) and zero fill outside the tensor. dims and box innermost
+// first; strides in bytes for dims 1 .. rank - 1.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                              const void* base, int rank,
+                              const cuuint64_t* dims,
+                              const cuuint64_t* strides,
+                              const cuuint32_t* box) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -271,14 +321,22 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                      dims, strides, box, elem_strides,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+  CUresult r = encode(map, dtype, static_cast<cuuint32_t>(rank),
+                      const_cast<void*>(base), dims, strides, box,
+                      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same for bf16 (box dim 0 is 64 elements).
+inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
+                                   int rank, const cuuint64_t* dims,
+                                   const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box);
 }
 
 // Dynamic shared memory opt-in for a kernel, once per kernel and device.

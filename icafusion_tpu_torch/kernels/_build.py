@@ -58,6 +58,12 @@ SIGNATURES = {
     # pad_w, Ho, Wo, is_bf16, act, epilogue, stream
     "icaf_conv_int8": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
                        ctypes.c_float, _P, *(_I,) * 16, _P),
+    # the same up to out, then the split-K scratch ws and counters (null
+    # without a split), the 16 ints of icaf_conv_int8, and the plan: th,
+    # tw, groups, splits, slice_units, chunks, b_stages and its layout
+    # (copy_bytes, off_q, off_ep, off_bar, smem); stream
+    "icaf_conv_int8_tma": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                           ctypes.c_float, _P, _P, _P, *(_I,) * 28, _P),
 }
 
 

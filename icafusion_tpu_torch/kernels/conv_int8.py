@@ -5,11 +5,21 @@ The JAX package runs its int8 conv through XLA, not Pallas
 (``icafusion_tpu/nn/layers.py:154-176``, ``Conv._int8_conv``:
 ``lax.conv_general_dilated`` on int8 operands with an int32 result, then
 ``* s_w``, BatchNorm and the activation). PyTorch has no int8 convolution
-on CUDA, so the port has its own kernel, ``csrc/conv_int8.cu``: an
-implicit GEMM on ``mma.sync`` m16n8k32 s8 tensor-core tiles that quantizes
-x in its operand load.
+on CUDA, so the port has its own kernel, ``csrc/conv_int8.cu``, with two
+paths that ``plan`` chooses between:
 
-``conv_int8_bn_act`` launches that kernel on CUDA tensors and runs
+- ``"tma"``, the serving path: x float32 or bfloat16 with its channels
+  innermost (channels_last, or a channels_last view with a 16-byte aligned
+  channel offset), ``Cin % 16 == 0``, ``Cout % 8 == 0``, stride 1 or 2. A
+  block quantizes its output tile's input window (with the halo) once into
+  shared memory and multiplies it with s8 ``wgmma`` against weight tiles
+  that stream through a TMA ring; Cout and K are spread over more blocks
+  where the output tiles alone leave the card idle (``plan``).
+- ``"direct"``: everything else (the 3-channel stem, NCHW and other
+  strides): an implicit GEMM on ``mma.sync`` m16n8k32 tiles that quantizes
+  x in its operand load.
+
+``conv_int8_bn_act`` launches the kernel on CUDA tensors and runs
 ``conv_int8_bn_act_reference``, the plain PyTorch version, on CPU tensors
 only. Both compute
 
@@ -27,7 +37,9 @@ channels_last.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +85,232 @@ def conv_int8_bn_act_reference(x, w8, s_in, s_w, bn: BN, stride=1,
     return y.to(x.dtype)
 
 
+# The "tma" path's geometry. layout() places the kernel's shared memory;
+# csrc/conv_int8.cu takes the offsets and only checks them.
+SMS = 132                 # the H100's SMs
+SMEM_MAX = 232448         # dynamic shared memory a block may opt into
+SMEM_SM = 233472          # an SM's shared memory, 1 KB of it kept a block
+M_SLOTS = 128             # output pixels a block: 2 warpgroups x 64 rows
+N_TILE = 128              # output channels a wgmma tile
+Q_CH = 128                # int8 channels a quantized row (128 bytes)
+UNIT = 32                 # channels a k32 step: the split granularity
+B_STAGES = (4, 3, 2)      # weight tiles (N_TILE x Q_CH bytes) in flight
+# Split-K. Where the output tiles leave SMs idle, a tile's 128-channel
+# output tiles may be spread over groups of blocks (each quantizes the same
+# window), up to as many as cover the SMs; for each such count, where the
+# blocks are still fewer than SPLIT_BELOW, Cin is split across blocks
+# towards SPLIT_FILL blocks, but only where the quantization dominates a
+# block (Cin >= SPLIT_CIN) or the card is nearly idle (fewer than
+# SPLIT_IDLE blocks). Of those, the least waves of blocks times weight
+# tiles a block streams wins, the most groups on a tie. Chosen on a sweep
+# of groups x splits at the shape classes of yolov5l-Transfusion 640 at
+# B = 1 and 4 on an H100 (port_probes.py int8-splits, PERF.md).
+SPLIT_BELOW, SPLIT_FILL, SPLIT_CIN, SPLIT_IDLE = 100, 128, 512, 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How ``conv_int8_bn_act`` launches one conv. ``path`` is "tma" (the
+    serving path) or "direct" (``reason`` says why). For "tma": a block
+    owns ``tile`` = (th, tw) output pixels of one image (its 128 wgmma
+    rows; slots past th * tw are computed and dropped) and quantizes their
+    input window ``halo`` = (hh, hw) once into shared memory, then
+    multiplies it with weight tiles of (Q_CH, 1, N_TILE) (Cin, tap, Cout),
+    which TMA streams through a ring of ``b_stages``.
+    The grid is ``tiles`` x ``groups`` (blocks across Cout, ``n_per_group``
+    128-channel tiles each) x ``splits`` (blocks across Cin,
+    ``slice_units`` 32-channel units each, ``chunks`` 128-channel rows a
+    window pixel); a block's shared memory is laid out as ``layout`` says."""
+    path: str
+    reason: str = ""
+    tile: Tuple[int, int] = (0, 0)
+    halo: Tuple[int, int] = (0, 0)
+    tiles: int = 0
+    b_stages: int = 4
+    groups: int = 1
+    n_per_group: int = 0
+    splits: int = 1
+    slice_units: int = 0
+    chunks: int = 0
+    grid: int = 0
+    layout: Optional["Layout"] = None
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block (0 on the direct path)."""
+        return self.layout.smem if self.layout else 0
+
+
+def _tile(Ho: int, Wo: int, kh: int, kw: int, sh: int, sw: int):
+    """(th, tw) with th * tw <= M_SLOTS and, where a tap reads a later
+    row of a window copy, tw a multiple of 8 (its 64-row operands start on
+    a swizzle atom): the fewest tiles an image, then the least window, then
+    the widest rows."""
+    step = 8 if (kh - 1) // sh else 1
+    best = None
+    for tw in range(step, min(_cdiv(Wo, step) * step, M_SLOTS) + 1, step):
+        th = min(Ho, M_SLOTS // tw)
+        n = _cdiv(Ho, th) * _cdiv(Wo, tw)
+        key = (n, n * ((th - 1) * sh + kh) * ((tw - 1) * sw + kw), -tw)
+        if best is None or key < best[0]:
+            best = (key, th, tw)
+    return best[1], best[2]
+
+
+def copy_rows(tile: Tuple[int, int], kh: int, sh: int) -> int:
+    """Rows of one window copy: (th + lift) image rows of tw pixels, and
+    at least the 128 slots plus the deepest tap's offset (lift * tw, lift =
+    (kh - 1) // sh), in whole 8-row swizzle atoms."""
+    th, tw = tile
+    lift = (kh - 1) // sh
+    return _cdiv(max((th + lift) * tw, M_SLOTS + lift * tw), 8) * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A "tma" block's dynamic shared memory, in bytes from its 1 KB-aligned
+    base: the weight ring at 0, then at ``off_q`` kw * sh int8 copies of
+    the window (``copy_bytes`` each) per 128-channel chunk, at ``off_ep``
+    mult/add of its output channels, at ``off_bar`` 16 barrier words;
+    ``smem`` bytes in all with 1 KB of alignment slack."""
+    copy_bytes: int
+    off_q: int
+    off_ep: int
+    off_bar: int
+    smem: int
+
+
+def layout(tile: Tuple[int, int], kh: int, kw: int, sh: int, chunks: int,
+           n_per_group: int, b_stages: int) -> Layout:
+    copy = copy_rows(tile, kh, sh) * Q_CH
+    off_q = b_stages * N_TILE * Q_CH
+    off_ep = off_q + chunks * kw * sh * copy
+    off_bar = off_ep + n_per_group * N_TILE * 8
+    return Layout(copy, off_q, off_ep, off_bar, 1024 + off_bar + 128)
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Resident "tma" blocks an SM (its registers allow two)."""
+    return max(1, min(2, SMEM_SM // (smem + 1024)))
+
+
+def _ring(geometry: tuple, chunks: int, n_per_group: int,
+          blocks: int = 0) -> Optional[Tuple[int, Layout]]:
+    """(b_stages, layout): the weight ring that lets the most blocks share
+    an SM, the deeper one on a tie, or simply the deepest where the grid's
+    ``blocks`` give an SM one block at most; None where none fits.
+    ``geometry`` is layout's (tile, kh, kw, sh)."""
+    fits = [(blocks_per_sm(m.smem) if blocks > SMS else 1, b, m)
+            for b in B_STAGES
+            for m in [layout(*geometry, chunks, n_per_group, b)]
+            if m.smem <= SMEM_MAX]
+    if not fits:
+        return None
+    _, b, m = max(fits, key=lambda f: f[:2])
+    return b, m
+
+
+@functools.lru_cache(maxsize=4096)   # a forward asks for the same few
+def plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int,
+         stride=1, padding=0, dtype=torch.bfloat16,
+         strides: Optional[Tuple[int, int, int, int]] = None,
+         aligned: bool = True) -> Plan:
+    """The launch plan of one conv: x (B, Cin, H, W) of ``dtype`` with
+    element ``strides`` (b, c, h, w; channels_last when None) and a
+    16-byte aligned start (``aligned``), w8 (Cout, kh, kw, Cin).
+
+    Split-K (see SPLIT_*): the block's 128-channel output tiles may be
+    spread over ``groups`` blocks (each quantizes the same window) and Cin
+    over ``splits`` blocks of whole 32-channel units, at least as many as
+    shared memory forces. The last block to finish a tile sums the int32
+    partials (exact in any order) and applies the epilogue."""
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    Ho, Wo = (H + 2 * ph - kh) // sh + 1, (W + 2 * pw - kw) // sw + 1
+    if strides is None:
+        strides = (H * W * Cin, 1, W * Cin, Cin)
+    direct = lambda why: Plan("direct", why)
+    if dtype not in (torch.float32, torch.bfloat16):
+        return direct(f"dtype {dtype}")
+    esz = 2 if dtype == torch.bfloat16 else 4
+    if strides[1] != 1:
+        return direct("channels are not innermost (NCHW or other strides)")
+    if any(s * esz % 16 for s in (strides[0], strides[2], strides[3])):
+        return direct("a pixel stride is not a multiple of 16 bytes")
+    if not aligned:
+        return direct("x does not start on 16 bytes")
+    if sh != sw or sh not in (1, 2):
+        return direct(f"stride {(sh, sw)}")
+    if Cin % 16:
+        return direct(f"Cin {Cin} is not a multiple of 16")
+    if Cout % 8:
+        return direct(f"Cout {Cout} is not a multiple of 8")
+    th, tw = _tile(Ho, Wo, kh, kw, sh, sw)
+    hh, hw = (th - 1) * sh + kh, (tw - 1) * sw + kw
+    tiles = B * _cdiv(Ho, th) * _cdiv(Wo, tw)
+    n_tiles, U = _cdiv(Cout, N_TILE), _cdiv(Cin, UNIT)
+    geometry = ((th, tw), kh, kw, sh)
+    choices = []
+    for groups in sorted({_cdiv(n_tiles, _cdiv(n_tiles, g))
+                          for g in range(1, min(n_tiles,
+                                                _cdiv(SMS, tiles)) + 1)},
+                         reverse=True):
+        npg = _cdiv(n_tiles, groups)
+        fit = [u for u in range(1, U + 1)
+               if _ring(geometry, _cdiv(u * UNIT, Q_CH), npg) is not None]
+        if not fit:
+            continue
+        units = max(fit)                # what shared memory forces
+        busy = tiles * groups
+        if busy < SPLIT_BELOW and (Cin >= SPLIT_CIN or busy < SPLIT_IDLE):
+            # the slices whose block count comes nearest SPLIT_FILL
+            units = min(range(1, units + 1), key=lambda u: (
+                abs(busy * _cdiv(U, u) - SPLIT_FILL), _cdiv(U, u)))
+        splits = _cdiv(U, units)
+        b_stages, lay = _ring(geometry, _cdiv(units * UNIT, Q_CH), npg,
+                              busy * splits)
+        # waves of blocks x weight tiles a block streams (128 channels in
+        # and out): the products wait on those tiles' round trips
+        waves = _cdiv(busy * splits, SMS * blocks_per_sm(lay.smem))
+        cost = waves * npg * _cdiv(units * UNIT, Q_CH)
+        choices.append((cost, -groups, npg, units, splits, b_stages, lay))
+    if not choices:
+        return direct("the input window does not fit shared memory")
+    _, groups, npg, units, splits, b_stages, lay = min(
+        choices, key=lambda c: c[:6])
+    groups = -groups
+    chunks = _cdiv(units * UNIT, Q_CH)
+    return Plan("tma", tile=(th, tw), halo=(hh, hw),
+                tiles=tiles, b_stages=b_stages, groups=groups,
+                n_per_group=npg, splits=splits,
+                slice_units=units, chunks=chunks,
+                grid=tiles * groups * splits, layout=lay)
+
+
+def plan_for(x: torch.Tensor, w8: torch.Tensor, stride=1, padding=0) -> Plan:
+    """``plan`` of ``conv_int8_bn_act(x, w8, ..., stride, padding)``."""
+    Cout, kh, kw, Cin = w8.shape
+    return plan(x.shape[0], Cin, *x.shape[2:], Cout, kh, kw, stride,
+                padding, x.dtype, tuple(x.stride()), x.data_ptr() % 16 == 0)
+
+
+# Split-K tile counters, by (device, stream): zeroed once, and every launch
+# leaves them at zero (the last block of a tile resets its counter).
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, _build.stream_handle(device))
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
+
+
 def conv_int8_bn_act(x, w8, s_in, s_w, bn: BN, stride=1, padding=0,
                      act: bool = True, epilogue: bool = True):
     """x: (B, Cin, H, W) float32 or bfloat16, any strides; w8: (Cout, kh,
@@ -80,7 +318,8 @@ def conv_int8_bn_act(x, w8, s_in, s_w, bn: BN, stride=1, padding=0,
     float32; bn: (gamma, beta, running_mean, running_var, eps) of the
     BatchNorm, float32 (Cout,) each (None without the epilogue). Returns
     act(BN(conv(x8, w8) * s_w)) in x's dtype, channels_last, or with
-    epilogue=False the int32 accumulators. Ungrouped convs only."""
+    epilogue=False the int32 accumulators. Ungrouped convs only. ``plan``
+    picks the kernel's path."""
     if x.device.type == "cpu":
         return conv_int8_bn_act_reference(x, w8, s_in, s_w, bn, stride,
                                           padding, act, epilogue)
@@ -99,13 +338,12 @@ def conv_int8_bn_act(x, w8, s_in, s_w, bn: BN, stride=1, padding=0,
         s_in = s_in.expand(Cin).contiguous()
     if bn is None and epilogue:
         raise ValueError("conv_int8_bn_act: the epilogue needs bn")
-    gamma, beta, mean, var, eps = bn or (s_w, s_w, s_w, s_w, 0.0)
-    for t, n in ((s_in, Cin), (s_w, Cout), (gamma, Cout), (beta, Cout),
-                 (mean, Cout), (var, Cout)):
+    bn = bn or (s_w, s_w, s_w, s_w, 0.0)
+    for t, n in ((s_in, Cin), (s_w, Cout), *((t, Cout) for t in bn[:4])):
         if t.shape != (n,) or t.dtype != torch.float32:
             raise ValueError("conv_int8_bn_act: s_in is (Cin,), s_w and the "
                              "BatchNorm tensors (Cout,), all float32")
-    for t in (w8, s_in, s_w, gamma, beta, mean, var):
+    for t in (w8, s_in, s_w, *bn[:4]):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("conv_int8_bn_act: w8, the scales and the "
                              "BatchNorm tensors must be contiguous and on "
@@ -113,25 +351,56 @@ def conv_int8_bn_act(x, w8, s_in, s_w, bn: BN, stride=1, padding=0,
     if w8.data_ptr() % 16:
         raise ValueError("conv_int8_bn_act: w8 must be 16-byte aligned")
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
-    Ho, Wo = (H + 2 * ph - kh) // sh + 1, (W + 2 * pw - kw) // sw + 1
-    if Ho <= 0 or Wo <= 0:
+    if H + 2 * ph < kh or W + 2 * pw < kw:
         raise ValueError(f"conv_int8_bn_act: empty output for {(H, W)}, "
                          f"kernel {(kh, kw)}, padding {(ph, pw)}")
-    out = torch.empty((B, Cout, Ho, Wo),
-                      dtype=x.dtype if epilogue else torch.int32,
-                      device=x.device, memory_format=torch.channels_last)
-    with torch.cuda.device(x.device):
-        err = _build.library().icaf_conv_int8(
-            x.data_ptr(), *x.stride(), w8.data_ptr(), s_in.data_ptr(),
-            s_w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), ctypes.c_float(eps),
-            out.data_ptr(), B, Cin, H, W, Cout, kh, kw, sh, sw, ph, pw, Ho,
-            Wo, int(x.dtype == torch.bfloat16), int(bool(act)),
-            int(bool(epilogue)), _build.stream_handle(x.device))
-    _build.check(err, "conv_int8_bn_act")
+    pl = plan(B, Cin, H, W, Cout, kh, kw, (sh, sw), (ph, pw), x.dtype,
+              x.stride(), x.data_ptr() % 16 == 0)
+    out = _launch(x, w8, s_in, s_w, bn, stride, padding, act, epilogue, pl)
     conv_int8_bn_act.launches += 1
     return out
 
 
-conv_int8_bn_act.launches = 0
+def _launch(x, w8, s_in, s_w, bn: BN, stride, padding, act: bool,
+            epilogue: bool, pl: Plan) -> torch.Tensor:
+    """Launch plan ``pl`` on arguments that conv_int8_bn_act has checked
+    (s_in (Cin,), bn a full tuple)."""
+    B, Cin, H, W = x.shape
+    Cout, kh, kw, _ = w8.shape
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    Ho, Wo = (H + 2 * ph - kh) // sh + 1, (W + 2 * pw - kw) // sw + 1
+    out = torch.empty((B, Cout, Ho, Wo),
+                      dtype=x.dtype if epilogue else torch.int32,
+                      device=x.device, memory_format=torch.channels_last)
+    lib = _build.library()
+    gamma, beta, mean, var, eps = bn
+    common = (w8.data_ptr(), s_in.data_ptr(), s_w.data_ptr(),
+              gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+              var.data_ptr(), ctypes.c_float(eps), out.data_ptr())
+    shape = (B, Cin, H, W, Cout, kh, kw, sh, sw, ph, pw, Ho, Wo,
+             int(x.dtype == torch.bfloat16), int(bool(act)),
+             int(bool(epilogue)))
+    with torch.cuda.device(x.device):
+        if pl.path == "tma":
+            ws = counters = None
+            if pl.splits > 1:
+                ws = torch.empty((pl.splits, B, Ho, Wo, Cout),
+                                 dtype=torch.int32, device=x.device)
+                counters = _counters(x.device, pl.tiles * pl.groups)
+            lay = pl.layout
+            err = lib.icaf_conv_int8_tma(
+                x.data_ptr(), *x.stride(), *common,
+                ws.data_ptr() if ws is not None else None,
+                counters.data_ptr() if counters is not None else None,
+                *shape, *pl.tile, pl.groups, pl.splits,
+                pl.slice_units, pl.chunks, pl.b_stages, lay.copy_bytes,
+                lay.off_q, lay.off_ep, lay.off_bar, lay.smem,
+                _build.stream_handle(x.device))
+        else:
+            err = lib.icaf_conv_int8(x.data_ptr(), *x.stride(), *common,
+                                     *shape, _build.stream_handle(x.device))
+    _build.check(err, f"conv_int8_bn_act ({pl.path})")
+    return out
 
+
+conv_int8_bn_act.launches = 0

@@ -354,7 +354,8 @@ class TransformerFusionBlock(nn.Module):
             y = y[:, :, iy][:, :, :, ix]
         else:
             y = resize_linear(y, hh, ww)
-        return y.to(x.dtype) + x
+        # x first: the sum takes x's layout (channels_last on the card)
+        return x + y.to(x.dtype)
 
     def forward(self, xs):
         vis, ir = xs

@@ -216,5 +216,6 @@ class Upsample(nn.Module):
         self.s = int(scale_factor)
 
     def forward(self, x):
-        return x.repeat_interleave(self.s, dim=-2).repeat_interleave(
-            self.s, dim=-1)
+        # nearest at an integer scale repeats pixels exactly, and keeps x's
+        # memory format (the int8 conv's tma path reads channels_last maps)
+        return F.interpolate(x, scale_factor=self.s, mode="nearest")

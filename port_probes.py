@@ -28,6 +28,32 @@ gated run does not make. Each subcommand needs a CUDA device.
         largest |difference| from the float64 run's output over that
         output's largest value, for every layer.
 
+    python3 port_probes.py int8-splits
+
+        The int8 conv's tma path under every (groups, splits) choice that
+        fits shared memory, at the shape classes of chip_smoke.INT8_SHAPES
+        whose output tiles leave the card idle, at B = 1 and 4 in bf16:
+        each choice's int32 accumulators against the plain version, then
+        its time (queued_ms), beside the choice of kernels/conv_int8.py:
+        plan and how much slower that is than the fastest choice.
+
+    python3 port_probes.py int8-phases
+
+        Where a tma block's time goes: a copy of csrc/conv_int8.cu with
+        globaltimer stamps (block start, window quantized, first output
+        tile's products done, products and epilogue done, split-K finish
+        pass entered) built beside build/, run at chip_smoke.INT8_SHAPES
+        at B = 4 in bf16; prints the means over the blocks.
+
+    python3 port_probes.py int8-forward
+
+        chip_smoke.py's phase 11b alone (yolov5l-Transfusion 640, batch 4,
+        bf16, quantized; each int8 conv of a forward timed on its own
+        input), with the -Xptxas -v lines of the int8 kernels where this
+        process built the library. Run it in several processes to see how
+        far whole readings of the summed int8 time and of device busy
+        spread on one build.
+
 Each prints one JSON object as its last line.
 """
 
@@ -35,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -179,12 +206,188 @@ def fp64(cfg_name: str, imgsz: int, scales) -> dict:
     return out
 
 
+def _int8_classes(batches=(4, 1)):
+    import chip_smoke as cs
+    for B in batches:
+        for shape in cs.INT8_SHAPES:
+            if shape[0] % 16 == 0:          # the stem takes the direct path
+                yield B, shape
+
+
+def _with_split(pl, Cin, Cout, k, s, groups, units):
+    """``pl`` (a tma plan of that conv) with ``groups`` blocks across Cout
+    and ``units`` 32-channel units a split, or None where that does not
+    fit shared memory."""
+    from icafusion_tpu_torch.kernels import conv_int8 as ci
+    n_tiles = -(-Cout // ci.N_TILE)
+    npg = -(-n_tiles // groups)
+    groups, splits = -(-n_tiles // npg), -(-(-(-Cin // ci.UNIT)) // units)
+    chunks = -(-(units * ci.UNIT) // ci.Q_CH)
+    grid = pl.tiles * groups * splits
+    ring = ci._ring((pl.tile, k, k, s), chunks, npg, grid)
+    if ring is None:
+        return None
+    return dataclasses.replace(
+        pl, groups=groups, n_per_group=npg, splits=splits, slice_units=units,
+        chunks=chunks, b_stages=ring[0], layout=ring[1], grid=grid)
+
+
+def int8_splits() -> dict:
+    import chip_smoke as cs
+    from icafusion_tpu_torch.kernels import conv_int8 as ci
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out, losses = {}, []
+    for B, shape in _int8_classes():
+        args = cs.int8_case(B, shape, torch.bfloat16, gen)
+        Cin, Cout, k, s, H, W = shape
+        pl = ci.plan_for(args[0], args[1], args[5], args[6])
+        if pl.tiles >= 2 * ci.SMS:
+            continue
+        ref = ci.conv_int8_bn_act_reference(*args, epilogue=False)
+        U, n_tiles = -(-Cin // ci.UNIT), -(-Cout // ci.N_TILE)
+        times = {}
+        for g in sorted({-(-n_tiles // -(-n_tiles // g))
+                         for g in range(1, n_tiles + 1)}):
+            for units in sorted({-(-U // sp) for sp in
+                                 (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)}):
+                v = _with_split(pl, Cin, Cout, k, s, g, units)
+                if v is None or v.grid > 1024 or (v.groups, v.splits) in times:
+                    continue
+                got = ci._launch(*args, True, False, v)
+                assert torch.equal(got, ref), (B, shape, v)
+                times[(v.groups, v.splits)] = cs.queued_ms(
+                    lambda: ci._launch(*args, True, True, v),
+                    iters=10, warmup=2)
+        best = min(times, key=times.get)
+        mine = times[(pl.groups, pl.splits)]
+        losses.append(mine / times[best] - 1)
+        order = sorted(times, key=times.get)
+        print(f"   B={B} {str(shape):28s} tiles {pl.tiles}: plan G{pl.groups}"
+              f" S{pl.splits} {mine:.4f} ms; fastest "
+              + ", ".join(f"G{g}S{sp} ({pl.tiles * g * sp}) "
+                          f"{times[(g, sp)]:.4f}" for g, sp in order[:5]),
+              flush=True)
+        out[f"B={B} {shape}"] = {"plan": [pl.groups, pl.splits],
+                                 "plan_ms": mine, "best": list(best),
+                                 "best_ms": times[best]}
+        del args, ref
+    out["plan_over_fastest_mean"] = float(np.mean(losses))
+    out["plan_over_fastest_max"] = float(np.max(losses))
+    return out
+
+
+def int8_phases() -> dict:
+    import ctypes
+    import chip_smoke as cs
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.kernels import conv_int8 as ci
+    src = (HERE / "icafusion_tpu_torch" / "csrc" / "conv_int8.cu").read_text()
+    stamps = (
+        ("namespace tma {", "namespace tma {\n__device__ unsigned long long "
+         "g_t[1 << 18];\n__device__ __forceinline__ unsigned long long now() "
+         "{ unsigned long long t; asm volatile(\"mov.u64 %0, %%globaltimer;\""
+         " : \"=l\"(t)); return t; }"),
+        ("  if (warp == kConsumers / 32) {   // the producer",
+         "  if (tid == 0) g_t[blockIdx.x * 5] = now();\n"
+         "  if (warp == kConsumers / 32) {   // the producer"),
+        ("  named_barrier(1, kConsumers);\n\n  // 2. Products",
+         "  named_barrier(1, kConsumers);\n"
+         "  if (tid == 0) g_t[blockIdx.x * 5 + 1] = now();\n\n  // 2. Products"),
+        ("    const int n0 = nt * kN;",
+         "    if (tid == 0 && nt == nt0) g_t[blockIdx.x * 5 + 2] = now();\n"
+         "    const int n0 = nt * kN;"),
+        ("  if (p.splits == 1) return;",
+         "  if (tid == 0) g_t[blockIdx.x * 5 + 3] = now();\n"
+         "  if (p.splits == 1) return;"),
+        ("  if (!*flag) return;",
+         "  if (!*flag) return;\n"
+         "  if (tid == 0) g_t[blockIdx.x * 5 + 4] = now();"))
+    for a, b in stamps:
+        assert a in src, a
+        src = src.replace(a, b, 1)
+    src += ('\nextern "C" int icaf_stamps(void* host, int n) {\n'
+            '  return cudaMemcpyFromSymbol(host, tma::g_t, n * 8);\n}\n'
+            'extern "C" int icaf_stamps_zero() {\n'
+            '  static unsigned long long z[1 << 18];\n'
+            '  return cudaMemcpyToSymbol(tma::g_t, z, sizeof(z));\n}\n')
+    work = _build.BUILD_DIR / "int8_phases"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "conv_int8.cu").write_text(src)
+    (work / "hopper.cuh").write_text(
+        (_build.CSRC / "hopper.cuh").read_text())
+    subprocess.run([_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3",
+                    "-Xcompiler", "-fPIC", "-shared", "-o",
+                    str(work / "lib.so"), str(work / "conv_int8.cu")],
+                   check=True)
+    lib = ctypes.CDLL(str(work / "lib.so"))
+    lib.icaf_conv_int8_tma.argtypes = _build.SIGNATURES["icaf_conv_int8_tma"]
+    lib.icaf_stamps.argtypes = (ctypes.c_void_p, ctypes.c_int)
+    real = _build.library
+
+    def stamped():
+        return lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    _build.library = stamped       # the wrapper launches the stamped copy
+    try:
+        for B, shape in _int8_classes((4,)):
+            args = cs.int8_case(B, shape, torch.bfloat16, gen)
+            pl = ci.plan_for(args[0], args[1], args[5], args[6])
+            for _ in range(3):
+                ci.conv_int8_bn_act(*args)
+            torch.cuda.synchronize()
+            lib.icaf_stamps_zero()
+            ci.conv_int8_bn_act(*args)
+            torch.cuda.synchronize()
+            t = np.zeros(pl.grid * 5, np.uint64)
+            lib.icaf_stamps(t.ctypes.data, pl.grid * 5)
+            t = t.reshape(-1, 5).astype(np.int64) / 1e3
+            row = {"blocks": pl.grid,
+                   "span_us": float(t[:, 3].max() - t[:, 0].min()),
+                   "quantize_us": float((t[:, 1] - t[:, 0]).mean()),
+                   "first_tile_us": float((t[:, 2] - t[:, 1]).mean()),
+                   "rest_us": float((t[:, 3] - t[:, 2]).mean())}
+            fin = t[:, 4] > 0
+            if fin.any():
+                row["finish_us"] = float((t[fin, 4] - t[fin, 3]).mean())
+            print(f"   B={B} {str(shape):28s}: {json.dumps(row)}",
+                  flush=True)
+            out[f"B={B} {shape}"] = row
+    finally:
+        _build.library = real
+    return out
+
+
+def int8_forward(card: str) -> dict:
+    import re
+    import chip_smoke as cs
+    from icafusion_tpu_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False    # as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
+    log = _build.build().log             # empty where already built
+    for name, stats in re.findall(
+            r"Compiling entry function '(\w*conv_int8\w*)'.*?\n(.*?"
+            r"registers)", log, re.S):
+        print(f"   {name[-60:]}: " + "; ".join(
+            line.split(":")[-1].strip() for line in stats.splitlines()
+            if "spill" in line or "registers" in line))
+    entry, _ = cs.int8_serving_slice(card)
+    busy = entry["device_busy"]
+    return {"sum_ms": entry["ms"], "cudnn_ms": entry["library_ms"],
+            "bound_ms": entry["bound_ms"],
+            "busy_ms": {k: v and v[0] for k, v in busy.items()},
+            "idle_share": {k: v and v[1] for k, v in busy.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     a = sub.add_parser("attention")
     a.add_argument("--root", type=Path, default=HERE)
     sub.add_parser("fp64")
+    sub.add_parser("int8-splits")
+    sub.add_parser("int8-phases")
+    sub.add_parser("int8-forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("port_probes: no CUDA device", file=sys.stderr)
@@ -197,6 +400,12 @@ def main(argv=None) -> int:
     if args.cmd == "attention":
         res = {"root": str(args.root.resolve()),
                "attention": attention(args.root.resolve())}
+    elif args.cmd == "int8-splits":
+        res = {"int8_splits": int8_splits()}
+    elif args.cmd == "int8-phases":
+        res = {"int8_phases": int8_phases()}
+    elif args.cmd == "int8-forward":
+        res = {"int8_forward": int8_forward(card)}
     else:
         res = {"fp64": fp64(FP64_CFG, FP64_SIZE, FP64_SCALES)}
     res["card"] = card

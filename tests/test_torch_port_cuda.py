@@ -365,6 +365,107 @@ def test_int8_conv_kernel_matches_reference(dev, shape, layout, dtype):
     assert conv_int8_bn_act.launches == before + 4
 
 
+# The tma path (kernels/conv_int8.py: plan): (B, (Cin, Cout, k, s, H, W))
+INT8_TMA_CASES = [
+    # every P5 class of yolov5l at B = 1 and 4 (split-K), yolov5x's SPPF
+    *[(B, shape) for B in (1, 4) for shape in (
+        (1024, 512, 1, 1, 20, 20), (512, 512, 1, 1, 20, 20),
+        (512, 512, 3, 1, 20, 20), (2048, 1024, 1, 1, 20, 20),
+        (1024, 1024, 1, 1, 20, 20), (512, 1024, 3, 2, 40, 40),
+        (512, 512, 3, 2, 40, 40))],
+    (1, (2560, 1280, 1, 1, 20, 20)), (4, (2560, 1280, 1, 1, 20, 20)),
+    # ragged tiles against the map: 20 x 20 and 64 x 80
+    (2, (128, 128, 3, 1, 20, 20)), (2, (128, 128, 3, 1, 64, 80)),
+    (2, (256, 128, 1, 1, 64, 80)),
+    # stride 2
+    (2, (64, 128, 3, 2, 64, 80)), (1, (256, 512, 3, 2, 80, 80)),
+    # the n, s, m and x widths: Cin 16, 32, 48, 80 (ragged channel chunks)
+    (2, (16, 32, 3, 1, 40, 40)), (2, (32, 64, 3, 2, 80, 80)),
+    (2, (48, 48, 1, 1, 40, 40)), (2, (80, 80, 3, 1, 40, 40)),
+    (2, (48, 96, 3, 2, 40, 40)), (2, (80, 160, 1, 1, 20, 20))]
+
+
+@pytest.mark.parametrize("case", INT8_TMA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_tma_path_matches_reference(dev, case, dtype):
+    """The tma path at split-K, ragged, stride-2 and narrow shapes: int32
+    accumulators equal to the plain version's, outputs within
+    chip_smoke.INT8_TOL, with SiLU and identity."""
+    from icafusion_tpu_torch.kernels.conv_int8 import plan_for
+    B, shape = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + B)
+    args = chip_smoke.int8_case(B, shape, dtype, gen)
+    assert plan_for(args[0], args[1], args[5], args[6]).path == "tma"
+    chip_smoke.int8_check(args)
+    chip_smoke.int8_check(args, act=False)
+
+
+def test_int8_stem_and_nchw_take_the_direct_path(dev):
+    from icafusion_tpu_torch.kernels.conv_int8 import plan_for
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for shape, layout in (((3, 32, 6, 2, 64, 80), torch.channels_last),
+                          ((64, 64, 3, 1, 20, 20), torch.contiguous_format),
+                          ((64, 128, 1, 1, 20, 20), torch.contiguous_format)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = chip_smoke.int8_case(2, shape, dtype, gen, layout)
+            assert plan_for(args[0], args[1], args[5],
+                            args[6]).path == "direct"
+            chip_smoke.int8_check(args)
+
+
+@pytest.mark.parametrize("offset", [16, 24])
+def test_int8_channels_last_view_with_a_channel_offset(dev, offset):
+    """x = a channel slice of a wider channels_last map: the tma path reads
+    it in place when the offset is 16-byte aligned (bf16 offset 16), the
+    direct path otherwise (offset 24 = 48 bytes is aligned too; offset 4
+    = 8 bytes is not)."""
+    from icafusion_tpu_torch.kernels.conv_int8 import plan_for
+    gen = torch.Generator(device="cuda").manual_seed(offset)
+    args = list(chip_smoke.int8_case(2, (64, 96, 3, 1, 20, 24),
+                                     torch.bfloat16, gen))
+    full = torch.randn(2, 160, 20, 24, device="cuda", generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    for off, path in ((offset, "tma"), (4, "direct")):
+        x = full[:, off:off + 64]
+        args[0] = x
+        args[2] = (x.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-8)
+        assert plan_for(x, args[1], args[5], args[6]).path == path
+        chip_smoke.int8_check(tuple(args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_tma_path_takes_an_s_in_off_16_bytes(dev, dtype):
+    """s_in a contiguous slice of a larger buffer, 4 bytes past a 16-byte
+    boundary: the tma kernel reads the scales with scalar loads, so it
+    stays on the tma path and gives the plain version's accumulators."""
+    from icafusion_tpu_torch.kernels.conv_int8 import plan_for
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = list(chip_smoke.int8_case(2, (64, 96, 3, 1, 20, 24), dtype, gen))
+    buf = torch.zeros(65, device="cuda")
+    buf[1:] = args[2]
+    args[2] = buf[1:]
+    assert args[2].is_contiguous() and args[2].data_ptr() % 16 == 4
+    assert plan_for(args[0], args[1], args[5], args[6]).path == "tma"
+    chip_smoke.int8_check(tuple(args))
+    chip_smoke.int8_check(tuple(args), act=False)
+
+
+def test_int8_split_k_counters_reset_between_calls(dev):
+    """Back-to-back split-K calls on one stream (the tile counters reset
+    themselves) give identical int32 sums, equal to the plain version's."""
+    from icafusion_tpu_torch.kernels.conv_int8 import (
+        conv_int8_bn_act, conv_int8_bn_act_reference, plan_for)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args = chip_smoke.int8_case(1, (1024, 512, 1, 1, 20, 20),
+                                torch.bfloat16, gen)
+    assert plan_for(args[0], args[1], args[5], args[6]).splits > 1
+    outs = [conv_int8_bn_act(*args, epilogue=False) for _ in range(3)]
+    ref = conv_int8_bn_act_reference(*args, epilogue=False)
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(o, ref)
+
+
 def test_int8_wrapper_rejects_what_the_kernel_does_not_take(dev):
     gen = torch.Generator(device="cuda").manual_seed(0)
     x, w8, s_in, s_w, bn, s, p = chip_smoke.int8_case(
