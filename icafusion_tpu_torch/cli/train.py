@@ -5,14 +5,22 @@ cli/train.py (reference train.py:493-588):
         --data flir_align_3class.yaml --hyp hyp.scratch.yaml --epochs 60 \\
         --batch-size 8 --bf16
 
-It trains on the CUDA card (--device cpu for the CPU). Flags whose paths
-are not ported raise with the ROADMAP item that holds them.
+It trains on the CUDA card (--device cpu for the CPU), over every local
+card with one process each (--devices N for N of them), or as one rank of a
+torchrun launch:
+
+    torchrun --nproc-per-node 4 -m icafusion_tpu_torch.cli.train \\
+        --distributed --cfg ... --data ... --batch-size 32
+
+--batch-size is the global batch in both. Flags whose paths are not ported
+raise with the ROADMAP item that holds them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import random
 
 import numpy as np
@@ -39,7 +47,8 @@ def parse_args(argv=None):
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--eval-every", type=int, default=1)
     ap.add_argument("--devices", type=int, default=None,
-                    help="number of devices (only 1 is ported)")
+                    help="number of devices, one training process each "
+                         "(default: all)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, raising without one)")
     ap.add_argument("--save-every", type=int, default=1)
@@ -62,7 +71,10 @@ def parse_args(argv=None):
     ap.add_argument("--evolve", type=int, default=0, metavar="N",
                     help="hyperparameter evolution (not ported)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training (not ported)")
+                    help="multi-process training under torchrun: join its "
+                         "env:// process group (RANK, WORLD_SIZE, "
+                         "MASTER_ADDR, MASTER_PORT); rank 0 alone writes "
+                         "and evaluates")
     ap.add_argument("--merge-streams", default="0", metavar="K",
                     help="stream-merged training (not ported)")
     ap.add_argument("--linear-lr", action="store_true",
@@ -135,9 +147,10 @@ def main(argv=None):
         nosave=args.nosave, notest=args.notest, freeze=tuple(args.freeze),
         device=args.device)
     result = fit(cfg)
-    print(f"done: mAP50={result.get('map50', 0):.4f} "
-          f"best_fitness={result.get('best_fitness', 0):.4f} "
-          f"run={result.get('run_dir')}")
+    if not args.distributed or os.environ.get("RANK", "0") == "0":
+        print(f"done: mAP50={result.get('map50', 0):.4f} "
+              f"best_fitness={result.get('best_fitness', 0):.4f} "
+              f"run={result.get('run_dir')}")
     return result
 
 

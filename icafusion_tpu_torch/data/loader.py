@@ -8,7 +8,10 @@ and augments (cv2 releases the GIL) and a producer thread keeps a few
 batches ahead. Each epoch shuffles with a generator seeded by (seed +
 epoch); each sample augments with its own generator keyed on (seed, epoch,
 dataset index), so a batch is the same bytes whatever the number of
-workers, and the same bytes as the JAX package's loader.
+workers, and the same bytes as the JAX package's loader. Under data
+parallel training each rank makes only its ``local_rows`` of every global
+batch: the ranks agree on the order with no communication, and their rows
+are the bytes of the one-process batch's.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import dataclasses
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -37,10 +40,20 @@ class PairedLoader:
     prefetch: int = 4
     image_weights: bool = False   # class-aware resampling (train.py:267-278)
     class_weights: Optional[np.ndarray] = None
+    # the rows of each global batch this rank makes, in order
+    # (parallel/mesh.process_rows); None: every row
+    local_rows: Optional[Sequence[int]] = None
 
     def __post_init__(self):
         n, B = len(self.dataset), self.batch_size
         self.steps_per_epoch = n // B if self.drop_last else (n + B - 1) // B
+        if self.local_rows is not None:
+            rows = np.asarray(self.local_rows, np.int64)
+            if (not len(rows) or len(set(rows.tolist())) != len(rows)
+                    or rows.min() < 0 or rows.max() >= B):
+                raise ValueError(f"local_rows {rows.tolist()}: distinct rows "
+                                 f"of a batch of {B}")
+            self.local_rows = rows
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed + epoch)
@@ -92,6 +105,8 @@ class PairedLoader:
         idx = self._epoch_indices(epoch)
         B = self.batch_size
         batches = [idx[i * B:(i + 1) * B] for i in range(self.steps_per_epoch)]
+        if self.local_rows is not None:
+            batches = [b[self.local_rows] for b in batches]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         end = object()

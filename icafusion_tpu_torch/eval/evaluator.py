@@ -10,8 +10,14 @@ the kept detections come back to the host.
 Options, as in the JAX Evaluator: TTA (``augment``), confluence on the host
 in place of NMS, the validation loss from the raw maps of the same forward
 (``loss_fn``), the MR-format txts with result.txt (the KAIST miss-rate
-input), the COCO detections json, and the PR/F1/P/R curves. Data-parallel
-evaluation (``n_devices``) is not ported (ROADMAP A8).
+input), the COCO detections json, and the PR/F1/P/R curves.
+
+Data parallel (``n_devices``, parallel/mesh.py): one replica of the model
+on each mesh device, every batch split into contiguous row shards, each
+replica's forward and NMS queued on its own device before the host waits
+for any of them, as the JAX Evaluator shards a batch over its mesh. The
+val loss is then the whole batch's: the replicas' sums added before the
+normalisation.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from icafusion_tpu_torch.models.tta import tta_inference
 from icafusion_tpu_torch.ops.boxes import scale_coords_np
 from icafusion_tpu_torch.ops.confluence import confluence_process
 from icafusion_tpu_torch.ops.nms import detections_to_numpy, non_max_suppression
+from icafusion_tpu_torch.parallel.mesh import (Mesh, device_scope, make_mesh,
+                                               replicate, shard_batch)
 from icafusion_tpu_torch.train.loss import pad_targets
 from icafusion_tpu_torch.utils.general import resolve_device
 
@@ -83,7 +91,12 @@ class Evaluator:
     NMS, at conf_thres (raise it, e.g. to 0.1) and proximity confluence_p.
     loss_fn: a YoloLoss; run() then adds 'val_loss_items' [box, obj, cls,
     rank], the mean over batches of the loss of the eval forward's raw maps
-    against at most max_targets labels an image. Not with augment."""
+    against at most max_targets labels an image. Not with augment.
+
+    n_devices > 1: that many replicas (parallel/mesh.make_mesh: the first n
+    CUDA devices, raising where fewer exist, or logical replicas of the
+    CPU); each batch's rows must divide over them, as in JAX. ``model`` is
+    the first replica."""
 
     def __init__(self, model: ICAFusionModel, nc: int,
                  conf_thres: float = 0.001, iou_thres: float = 0.5,
@@ -93,9 +106,6 @@ class Evaluator:
                  loss_fn=None, max_targets: int = 128,
                  n_devices: Optional[int] = None, dtype: str = "float32",
                  device=None):
-        if n_devices not in (None, 1):
-            raise NotImplementedError("Evaluator: n_devices is not ported "
-                                      "(ROADMAP A8)")
         if loss_fn is not None and augment:
             raise ValueError("val loss is unavailable under TTA (the "
                              "ensembled prediction has no single raw-map "
@@ -109,40 +119,61 @@ class Evaluator:
         self.confluence, self.confluence_p = confluence, confluence_p
         self.loss_fn, self.max_targets = loss_fn, max_targets
         self.dtype = getattr(torch, dtype)
-        self.model = copy.deepcopy(model).cast(self.dtype).to(self.device)
-
-    def _prep(self, a: np.ndarray) -> torch.Tensor:
-        """(B, H, W, 3) uint8 -> (B, 3, H, W) float32 in [0, 1] on the
-        device, channels_last."""
-        x = torch.from_numpy(a).to(self.device).permute(0, 3, 1, 2)
-        return x.float() / 255.0
+        self.mesh = (Mesh((self.device,)) if n_devices in (None, 1)
+                     else make_mesh(n_devices, self.device))
+        self.replicas = replicate(copy.deepcopy(model).cast(self.dtype),
+                                  self.mesh)
+        self.model = self.replicas[0]
 
     @torch.inference_mode()
-    def _infer(self, rgb: np.ndarray, ir: np.ndarray, targets=None):
-        """(detections, or the decoded predictions under confluence; the
-        loss items or None)."""
-        x, y = self._prep(rgb), self._prep(ir)
-        items = None
+    def _infer_shard(self, model, rgb, ir, targets):
+        """One replica's rows: (detections, or the decoded predictions under
+        confluence; the loss terms or None), queued on its device. rgb/ir
+        (b, H, W, 3) uint8 there."""
+        x, y = ((a.permute(0, 3, 1, 2).float() / 255.0) for a in (rgb, ir))
+        terms = None
         if self.augment:
-            pred = tta_inference(self.model, x, y, dtype=self.dtype)
+            pred = tta_inference(model, x, y, dtype=self.dtype)
         elif targets is not None:
-            pred, maps = self.model(x.to(self.dtype), y.to(self.dtype),
-                                    raw=True)
-            _, items = self.loss_fn(maps, *targets)
+            pred, maps = model(x.to(self.dtype), y.to(self.dtype), raw=True)
+            terms = self.loss_fn.terms(maps, *targets)
         else:
-            pred = self.model(x.to(self.dtype), y.to(self.dtype))
+            pred = model(x.to(self.dtype), y.to(self.dtype))
         if self.confluence:
-            return pred, items
+            return pred, terms
         return non_max_suppression(pred, conf_thres=self.conf_thres,
                                    iou_thres=self.iou_thres, multi_label=True,
                                    agnostic=self.single_cls,
                                    max_det=self.max_det,
-                                   top_k=self.top_k), items
+                                   top_k=self.top_k), terms
+
+    def _infer(self, rgb: np.ndarray, ir: np.ndarray, targets=None):
+        """(per image: its detections as numpy, or its decoded predictions
+        under confluence; the loss items or None)."""
+        shards = [shard_batch(a, self.mesh) for a in (rgb, ir)
+                  + (targets or ())]
+        outs = []
+        for i, (model, dev) in enumerate(zip(self.replicas,
+                                             self.mesh.devices)):
+            with device_scope(dev):
+                outs.append(self._infer_shard(
+                    model, shards[0][i], shards[1][i],
+                    (shards[2][i], shards[3][i]) if targets else None))
+        items = None
+        if targets is not None:
+            dev0 = self.mesh.devices[0]
+            num = sum(o[1][0].to(dev0) for o in outs)
+            den = sum(o[1][1].to(dev0) for o in outs)
+            batch = torch.full((), float(len(rgb)), device=dev0)
+            items = self.loss_fn.normalise(num, den, batch)[1]
+        if self.confluence:
+            return torch.cat([o[0].float().cpu() for o in outs]).numpy(), items
+        return [d for o in outs for d in detections_to_numpy(o[0])], items
 
     def _targets(self, batch: dict, img_size: int):
-        """The batch's labels moved to the letterboxed canvas, padded, on
-        the device. As in the JAX Evaluator, normalised by img_size (on a
-        rect canvas that is not the canvas's side: ROADMAP Queue C)."""
+        """The batch's labels moved to the letterboxed canvas and padded,
+        numpy. As in the JAX Evaluator, normalised by img_size (on a rect
+        canvas that is not the canvas's side: ROADMAP Queue C)."""
         canvas_labels = []
         for l, ((h0, w0), (ratio, pad)) in zip(batch["labels"],
                                                batch["shapes"]):
@@ -153,9 +184,7 @@ class Evaluator:
             l[:, 3] = l[:, 3] * w0 * g / img_size
             l[:, 4] = l[:, 4] * h0 * g / img_size
             canvas_labels.append(l)
-        tgt, mask = pad_targets(canvas_labels, max_targets=self.max_targets)
-        return (torch.from_numpy(tgt).to(self.device),
-                torch.from_numpy(mask).to(self.device))
+        return pad_targets(canvas_labels, max_targets=self.max_targets)
 
     def run(self, val_batches: Iterable[dict], img_size: int,
             confusion: bool = False, mr_txt_dir: Optional[str] = None,
@@ -183,16 +212,14 @@ class Evaluator:
             t0 = time.perf_counter()
             targets = (self._targets(batch, img_size)
                        if self.loss_fn is not None else None)
-            dets, items = self._infer(batch["rgb"], batch["ir"], targets)
+            det_list, items = self._infer(batch["rgb"], batch["ir"], targets)
             if items is not None:
                 loss_sum += items.double().cpu().numpy()
                 loss_n += 1
             if self.confluence:
                 det_list = confluence_process(
-                    dets.float().cpu().numpy(), conf_thres=self.conf_thres,
+                    det_list, conf_thres=self.conf_thres,
                     p_thres=self.confluence_p)
-            else:
-                det_list = detections_to_numpy(dets)
             if batch_idx > 1:   # warm-up batches excluded, as in JAX
                 t_infer += time.perf_counter() - t0
                 n_timed += batch["count"]

@@ -18,6 +18,7 @@ from torch import nn
 
 from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
 from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
+from icafusion_tpu_torch.parallel.mesh import all_reduce_sum, world
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -34,11 +35,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode update of the running variance uses
     the biased batch variance, as flax's BatchNorm does (torch uses the
     unbiased one): running = (1 - m) running + m var_biased. Normalisation
-    uses the batch statistics, as in both."""
+    uses the batch statistics, as in both.
+
+    In train mode under a process group of more than one rank
+    (parallel/mesh.py), the statistics are those of the global batch, as
+    the JAX package takes them over its mesh: the mean, then the centred
+    sum of squares, each summed across the ranks by a differentiable
+    all-reduce, so the backward sums across them too."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if world() > 1 and not x.is_meta:   # meta: a shape trace, no data
+            return self._global_forward(x)
         # torch updates copies (autograd keeps them; the buffers may change)
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
@@ -52,6 +61,24 @@ class BatchNorm2d(nn.BatchNorm2d):
                 var, alpha=(n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x):
+        xf = x.float()
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), torch.full(
+            (1,), float(xf.numel() // xf.shape[1]), device=x.device)]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        xc = xf - mean[None, :, None, None]
+        var = all_reduce_sum((xc * xc).sum((0, 2, 3))) / n
+        y = (xc * torch.rsqrt(var + self.eps)[None, :, None, None]
+             * self.weight.float()[None, :, None, None]
+             + self.bias.float()[None, :, None, None])
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class Conv(nn.Module):

@@ -12,9 +12,9 @@ card runs batch i, and batch i+1 goes out at a larger bucket.
 Results equal serial ``engine.predict_arrays`` calls up to the numerics of
 another batch size: images are independent through the serve step
 (eval-mode BatchNorm, per-image decode and NMS), and padding rows are zero
-images whose outputs are dropped. The engine serves one card, so every
-bucket is valid (the JAX package's buckets divide a device mesh; ROADMAP
-A8).
+images whose outputs are dropped. A bucket is split over the engine's
+replicas, so each must be a multiple of their number, as the JAX package's
+buckets divide its device mesh.
 """
 
 from __future__ import annotations
@@ -38,14 +38,17 @@ class _Request:
 
 
 def default_buckets(engine) -> List[int]:
-    """Powers of two up to the engine batch, and the engine batch itself."""
+    """Powers of two up to the engine batch that are multiples of its mesh
+    size, and the engine batch itself."""
+    mesh_n = engine.mesh.size
     out, b = [], 1
     while b <= engine.batch_size:
-        out.append(b)
+        if b % mesh_n == 0:
+            out.append(b)
         b *= 2
     if engine.batch_size not in out:
         out.append(engine.batch_size)
-    return out
+    return sorted(out)
 
 
 class MicroBatcher:
@@ -59,10 +62,14 @@ class MicroBatcher:
         self.engine = engine
         self.buckets = (sorted(set(buckets)) if buckets
                         else default_buckets(engine))
-        bad = [b for b in self.buckets if not 1 <= b <= engine.batch_size]
+        mesh_n = engine.mesh.size
+        bad = [b for b in self.buckets
+               if b < 1 or b % mesh_n != 0 or b > engine.batch_size]
         if bad:
-            raise ValueError(f"buckets {bad} invalid: each must be in 1.."
-                             f"engine.batch_size ({engine.batch_size})")
+            raise ValueError(
+                f"buckets {bad} invalid: must be multiples of the engine mesh "
+                f"size ({mesh_n}) and <= engine.batch_size "
+                f"({engine.batch_size})")
         self.max_wait_s = max_wait_ms / 1000.0
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue(queue_cap)
         self._lock = threading.Lock()

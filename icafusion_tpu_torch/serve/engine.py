@@ -1,4 +1,4 @@
-"""Paired-image serving engine on one CUDA device.
+"""Paired-image serving engine on one CUDA device or a mesh of them.
 
 Counterpart of the JAX package's serve/engine.py (``ServingEngine``), the
 serving path of the port: letterboxed uint8 pairs are padded to the engine
@@ -10,12 +10,18 @@ optionally rescaled to the native image size.
 ``predict_paths`` decodes image files (data/decode.py) and serves them,
 pipelined; ``warmup`` runs one batch; ``throughput`` times steady serving;
 ``quantize`` switches to int8 W8A8 serving (utils/quantize.py).
-Data-parallel serving and stream merging are not ported (ROADMAP A8, A10).
+
+Data parallel (``n_devices``, parallel/mesh.py): one replica of the model
+on each mesh device and every batch split into contiguous row shards, each
+replica's forward and NMS queued on its own device, as the JAX engine
+shards the batch over its mesh. Stream merging is not ported (ROADMAP
+A10).
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -28,6 +34,9 @@ from icafusion_tpu_torch.models.assembler import ICAFusionModel
 from icafusion_tpu_torch.ops.boxes import scale_coords_np
 from icafusion_tpu_torch.ops.nms import (Detections, detections_to_numpy,
                                          non_max_suppression)
+from icafusion_tpu_torch.parallel.mesh import (Mesh, device_count,
+                                               device_scope, make_mesh,
+                                               replicate, shard_batch)
 from icafusion_tpu_torch.utils.general import not_ported, resolve_device
 
 TOP_K = 1024   # candidates entering NMS, as the JAX engine serves
@@ -44,14 +53,24 @@ class ServingEngine:
     with outputs identical by construction; the port runs the streams
     apart, and an explicit count raises (ROADMAP A10).
 
+    n_devices: the replicas (parallel/mesh.make_mesh: the first n CUDA
+    devices, raising where fewer exist, or logical replicas of the CPU);
+    None takes gcd(batch_size, the devices present), as the JAX engine
+    does, so a batch always divides over them; a device named by its index
+    (``cuda:1``) serves alone unless n_devices says otherwise. Each batch,
+    and each bucket, must divide over the replicas. ``model`` is the first
+    replica.
+
     The engine may be called from several threads: a lock lets one of them
-    launch the device work of a batch at a time. It keeps a reference to
-    ``model``, whose float32 weights ``quantize`` reads."""
+    launch the device work of a batch, on every replica, at a time. It
+    keeps a reference to ``model``, whose float32 weights ``quantize``
+    reads."""
 
     def __init__(self, model: ICAFusionModel, img_size: Union[int, Sequence[int]] = 640,
                  batch_size: int = 32, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,
-                 dtype: str = "bfloat16", device=None, merge_streams=0):
+                 dtype: str = "bfloat16", device=None, merge_streams=0,
+                 n_devices: Optional[int] = None):
         if merge_streams not in (0, "0", "auto", None):
             not_ported(f"merge_streams={merge_streams} (stream merging)",
                        "A10")
@@ -62,22 +81,43 @@ class ServingEngine:
         self.conf_thres, self.iou_thres, self.max_det = (conf_thres, iou_thres,
                                                          max_det)
         self.dtype = getattr(torch, dtype)
+        n = (math.gcd(batch_size, device_count(self.device))
+             if n_devices is None else n_devices)
+        self.mesh = (Mesh((self.device,)) if n == 1
+                     else make_mesh(n, self.device))
         self._float_model = model
-        self.model = copy.deepcopy(model).cast(self.dtype).to(self.device)
+        self._place(copy.deepcopy(model).cast(self.dtype))
         self._lock = threading.Lock()
 
+    def _place(self, model: ICAFusionModel):
+        """Serve from ``model``: one copy on each mesh device."""
+        self.replicas = replicate(model, self.mesh)
+        self.model = self.replicas[0]
+
     @torch.inference_mode()
-    def _serve(self, rgb: torch.Tensor, ir: torch.Tensor) -> Detections:
-        """(B, H, W, 3) uint8 tensors on the device -> detections on the
-        device, queued without a wait for the host."""
+    def _serve(self, rgb, ir) -> Detections:
+        """(B, H, W, 3) uint8 arrays or tensors -> detections on the first
+        device, queued without a wait for the host: each replica runs its
+        rows on its own device, and their detections are gathered."""
         def prep(x):
             return (x.permute(0, 3, 1, 2).float() / 255.0).to(self.dtype)
 
         with self._lock:
-            pred = self.model(prep(rgb), prep(ir))
-            return non_max_suppression(pred, conf_thres=self.conf_thres,
-                                       iou_thres=self.iou_thres,
-                                       max_det=self.max_det, top_k=TOP_K)
+            out = []
+            for model, dev, x, y in zip(self.replicas, self.mesh.devices,
+                                        shard_batch(rgb, self.mesh),
+                                        shard_batch(ir, self.mesh)):
+                with device_scope(dev):
+                    pred = model(prep(x), prep(y))
+                    out.append(non_max_suppression(
+                        pred, conf_thres=self.conf_thres,
+                        iou_thres=self.iou_thres, max_det=self.max_det,
+                        top_k=TOP_K))
+            if len(out) == 1:
+                return out[0]
+            dev0 = self.mesh.devices[0]
+            return Detections(*(torch.cat([t.to(dev0, non_blocking=True)
+                                           for t in ts]) for ts in zip(*out)))
 
     def _dispatch(self, rgb: np.ndarray, ir: np.ndarray,
                   batch: Optional[int] = None):
@@ -96,9 +136,7 @@ class ServingEngine:
             pad = np.zeros((B - n, H, W, 3), np.uint8)
             rgb = np.concatenate([rgb, pad])
             ir = np.concatenate([ir, pad])
-        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device)
-        return self._serve(up(rgb), up(ir)), n
+        return self._serve(rgb, ir), n
 
     def _finalize(self, dets: Detections, n: int,
                   orig_hw=None) -> List[np.ndarray]:
@@ -155,7 +193,7 @@ class ServingEngine:
                 calib = calibrate(self.model, batches())
             model = quantize_model(copy.deepcopy(self._float_model), calib,
                                    skip=detect_feeder_skip(self.model.cfg))
-            self.model = model.cast(self.dtype).to(self.device)
+            self._place(model.cast(self.dtype))
         return hit
 
     def predict_arrays(self, rgb: np.ndarray, ir: np.ndarray,
@@ -212,15 +250,14 @@ class ServingEngine:
     def throughput(self, iters: int = 20) -> float:
         """Steady serving rate in pairs a second by the host clock: one
         batch of random pairs uploaded once, one warm-up call, then iters
-        calls on the device tensors, with one synchronisation at the end."""
+        calls on the device tensors, with one synchronisation at the end
+        (each replica's rows come from the first device)."""
         (H, W), B = self.canvas, self.batch_size
         rng = np.random.default_rng(0)
         rgb, ir = (torch.from_numpy(rng.integers(0, 256, (B, H, W, 3),
                                                  np.uint8)).to(self.device)
                    for _ in range(2))
-        self._serve(rgb, ir)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._serve(rgb, ir).scores.sum().item()
         t0 = time.perf_counter()
         for _ in range(iters):
             dets = self._serve(rgb, ir)

@@ -1,5 +1,5 @@
-"""The training loop, single process: the counterpart of the JAX
-package's train/fit.py (reference train.py:42-490).
+"""The training loop: the counterpart of the JAX package's train/fit.py
+(reference train.py:42-490).
 
 Config -> datasets and loaders -> anchor check -> model (init_weights, or
 pretrained from a .ckpt) -> Trainer steps on the card -> per-epoch
@@ -16,10 +16,21 @@ run starts with labels.png and the mosaics of its first three batches
 the run ends with results.png and the confusion matrix; where it does not,
 the plots are skipped and logged.
 
-Not ported, and refused with the ROADMAP item named: distributed and
-multi-device training, stream-merged training, a reference .pt as
-pretrained weights. The TensorBoard facade of the JAX fit is left out (it
-never gates a run there either).
+Data parallel (parallel/mesh.py), one process per device: with
+``distributed`` the run joins the env:// process group a torchrun launch
+gives it; ``n_devices`` > 1 without a group starts that many local ranks
+(CUDA devices 0..n-1, or gloo ranks on the CPU) and returns rank 0's
+result; ``n_devices`` None means every local card, or the one card that
+``device`` names by its index (``cuda:1``). Each rank feeds its rows
+of every microbatch, and BatchNorm, the loss's normalisers and the
+gradients are the global batch's, as over the JAX package's mesh. Rank 0
+picks the run directory and the anchors and alone writes files and
+evaluates; the other ranks wait for it at a barrier. A rank's failure fails
+the call.
+
+Not ported, and refused with the ROADMAP item named: stream-merged
+training, a reference .pt as pretrained weights. The TensorBoard facade of
+the JAX fit is left out (it never gates a run there either).
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from icafusion_tpu_torch.eval.kaist import evaluate_kaist
 from icafusion_tpu_torch.eval.metrics import fitness
 from icafusion_tpu_torch.models.assembler import (ICAFusionModel, build_model,
                                                   init_weights)
+from icafusion_tpu_torch.parallel import mesh
 from icafusion_tpu_torch.train.optim import _is_frozen, _path_str
 from icafusion_tpu_torch.train.trainer import Trainer, scaled_size
 from icafusion_tpu_torch.utils.checkpoint import (load_checkpoint,
@@ -136,14 +148,15 @@ class FitConfig:
     save_every: int = 1                  # last.ckpt period (epochs)
     pretrained: Optional[str] = None     # a .ckpt (a reference .pt: A10)
     resume: Optional[str] = None
-    n_devices: Optional[int] = None      # > 1: A8
+    n_devices: Optional[int] = None      # local ranks (None: every card,
+                                         # or the one card named)
     workers: int = 8
     warmup_min_steps: int = 1000         # the reference's floor
     autoanchor: bool = True
     image_weights: bool = False
     multi_scale: bool = False
     accum_steps: Optional[int] = None    # microbatches per optimizer step
-    distributed: bool = False            # A8
+    distributed: bool = False            # join torchrun's env:// group
     adam: bool = False
     merge_streams: int = 0               # A10
     linear_lr: bool = False
@@ -157,10 +170,6 @@ class FitConfig:
 
 
 def _check_ported(cfg: FitConfig):
-    if cfg.distributed:
-        not_ported("distributed training", "A8")
-    if cfg.n_devices not in (None, 1):
-        not_ported("n_devices > 1", "A8")
     if cfg.merge_streams:
         not_ported("merge_streams", "A10")
     if cfg.results_format not in ("native", "reference"):
@@ -210,19 +219,65 @@ def ema_model(trainer: Trainer) -> ICAFusionModel:
 
 
 def fit(cfg: FitConfig) -> dict:
+    """Train as FitConfig says; returns the last evaluation's metrics with
+    best_fitness and run_dir (rank 0's)."""
     device = resolve_device(cfg.device, "fit")
     _check_ported(cfg)
-    log = print
-    run_dir = increment_path(Path(cfg.project) / cfg.name)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if cfg.distributed and not torch.distributed.is_initialized():
+        mesh.init_distributed(backend)
+        try:
+            return _fit(cfg, _rank_device(device))
+        finally:
+            torch.distributed.destroy_process_group()
+    if mesh.world() > 1:
+        return _fit(cfg, _rank_device(device))
+    n = mesh.make_mesh(cfg.n_devices, device).size
+    if n > 1:
+        return mesh.spawn(_fit_rank, n, (cfg,), backend=backend)
+    return _fit(cfg, device)
+
+
+def _rank_device(device: torch.device) -> torch.device:
+    """A rank's device: its current CUDA device (init_distributed set it
+    from LOCAL_RANK), or the CPU. A card named by its index must be that
+    one."""
+    if device.type != "cuda":
+        return device
+    cur = torch.device("cuda", torch.cuda.current_device())
+    if device.index is not None and device != cur:
+        raise ValueError(f"fit: this rank runs on {cur}, not the {device} "
+                         "asked for; ask for 'cuda'")
+    return cur
+
+
+def _fit_rank(cfg: FitConfig) -> dict:
+    """One local rank of fit(n_devices > 1) (parallel/mesh.spawn): rank r
+    runs on cuda:r, in the mesh that fit checked."""
+    device = resolve_device(cfg.device, "fit")
+    return _fit(cfg, _rank_device(torch.device(device.type)))
+
+
+def _fit(cfg: FitConfig, device: torch.device) -> dict:
+    is_main, world = mesh.is_main(), mesh.world()
+    log = print if is_main else (lambda *a, **k: None)
+    run_dir = wdir = None
+    if is_main:
+        run_dir = increment_path(Path(cfg.project) / cfg.name)
+        wdir = run_dir / "weights"
+        wdir.mkdir(parents=True, exist_ok=True)
+        _write_run_files(run_dir, cfg)
+    # every rank takes rank 0's choice (increment_path would race)
+    run_dir = Path(mesh.broadcast_object(str(run_dir)))
     wdir = run_dir / "weights"
-    wdir.mkdir(parents=True, exist_ok=True)
     log(f"run dir: {run_dir}")
-    _write_run_files(run_dir, cfg)
 
     # --- data ---
     root = Path(cfg.data_cfg.path)
     nc = cfg.data_cfg.nc
-    cache_dir = str(run_dir / ".cache")
+    # a cache of its own for each rank: no two write one file
+    cache_dir = str(run_dir / (".cache" if world == 1
+                               else f".cache_p{mesh.rank()}"))
     train_ds = PairedDetectionDataset(
         str(root / cfg.data_cfg.train_rgb), str(root / cfg.data_cfg.train_ir),
         img_size=cfg.imgsz, nc=nc, single_cls=cfg.single_cls, hyp=cfg.hyp,
@@ -232,12 +287,19 @@ def fit(cfg: FitConfig) -> dict:
         img_size=cfg.imgsz, nc=nc, single_cls=cfg.single_cls, hyp=cfg.hyp,
         cache_dir=cache_dir)
     accum = max(int(cfg.accum_steps or 1), 1)
+    local_rows = None
+    if world > 1:
+        local_rows = mesh.process_rows(cfg.batch_size, accum)
+        log(f"data parallel: {world} ranks; each feeds "
+            f"{len(local_rows) // accum} rows of every global microbatch of "
+            f"{cfg.batch_size}")
     loader = PairedLoader(train_ds, batch_size=cfg.batch_size * accum,
                           max_targets=cfg.max_targets, seed=cfg.seed,
                           num_workers=cfg.workers,
                           image_weights=cfg.image_weights,
                           class_weights=labels_to_class_weights(
-                              train_ds.labels, nc))
+                              train_ds.labels, nc),
+                          local_rows=local_rows)
     val_loader = PairedLoader(val_ds, batch_size=cfg.batch_size,
                               shuffle=False, num_workers=cfg.workers)
     if loader.steps_per_epoch <= 0:
@@ -250,8 +312,11 @@ def fit(cfg: FitConfig) -> dict:
         from icafusion_tpu_torch.train.autoanchor import maybe_autoanchor
         anchors_px = np.asarray(model_cfg.anchors, np.float32).reshape(
             model_cfg.nl, -1, 2)
-        new, changed = maybe_autoanchor(train_ds, anchors_px, cfg.imgsz,
-                                        thr=cfg.hyp.anchor_t)
+        new = changed = None
+        if is_main:
+            new, changed = maybe_autoanchor(train_ds, anchors_px, cfg.imgsz,
+                                            thr=cfg.hyp.anchor_t)
+        new, changed = mesh.broadcast_object((new, changed))
         if changed:
             model_cfg = with_anchors(model_cfg, new)
             log("autoanchor: updated model anchors")
@@ -293,16 +358,16 @@ def fit(cfg: FitConfig) -> dict:
 
     ref_csv = cfg.results_format == "reference"
     names = list(cfg.data_cfg.names or [])
-    can_plot = importlib.util.find_spec("matplotlib") is not None
-    if not can_plot:
+    can_plot = is_main and importlib.util.find_spec("matplotlib") is not None
+    if is_main and not can_plot:
         log("matplotlib is not installed: the plots are skipped")
-    elif any(len(l) for l in train_ds.labels):
+    elif can_plot and any(len(l) for l in train_ds.labels):
         try:   # the label distributions (train.py:222, plots.py:330)
             plot_labels(train_ds.labels, names, run_dir)
         except Exception as e:
             log(f"plot_labels failed: {e}")
     results_csv = run_dir / "results.csv"
-    if not results_csv.exists():
+    if is_main and not results_csv.exists():
         with open(results_csv, "w", newline="") as f:
             if ref_csv:     # the reference's header (train.py:407-409)
                 f.write(",".join(["epoch"] + REFERENCE_RESULTS_KEYS) + "\n")
@@ -352,8 +417,8 @@ def fit(cfg: FitConfig) -> dict:
         ev = {"mp": 0.0, "mr": 0.0, "map50": 0.0, "map": 0.0}
         mr_vals = [0.0] * 10
         last_epoch = epoch == cfg.epochs - 1
-        if ((epoch + 1) % cfg.eval_every == 0 and not cfg.notest) \
-                or last_epoch:
+        if is_main and (((epoch + 1) % cfg.eval_every == 0
+                         and not cfg.notest) or last_epoch):
             evaluator = Evaluator(ema_model(trainer), nc=nc,
                                   single_cls=cfg.single_cls,
                                   loss_fn=trainer.loss_fn if ref_csv else None,
@@ -382,11 +447,15 @@ def fit(cfg: FitConfig) -> dict:
                 if not cfg.nosave or last_epoch:
                     save_checkpoint(wdir / "best.ckpt", trainer, epoch,
                                     best_fit, background=True)
-        if (not cfg.nosave or last_epoch) and (
+        if is_main and (not cfg.nosave or last_epoch) and (
                 (epoch + 1) % cfg.save_every == 0 or last_epoch):
             save_checkpoint(wdir / "last.ckpt", trainer, epoch, best_fit,
                             background=True)
+        mesh.barrier()           # the other ranks wait for rank 0's evaluation
         dt = time.time() - t0
+        final = ev
+        if not is_main:
+            continue
         with open(results_csv, "a", newline="") as f:
             if ref_csv:
                 vals = [*means[:3], 0.0,                     # train losses
@@ -404,12 +473,12 @@ def fit(cfg: FitConfig) -> dict:
                      f"{best_fit:.5f}", f"{lr_now:.6f}", f"{dt:.1f}"])
         log(f"epoch {epoch}/{cfg.epochs - 1}: loss={means[3]:.4f} "
             f"mAP50={ev['map50']:.4f} best={best_fit:.4f} ({dt:.0f}s)")
-        final = ev
 
-    wait_pending_saves()
-    best = wdir / "best.ckpt"
-    strip_checkpoint(best if best.exists() else wdir / "last.ckpt",
-                     wdir / "stripped.ckpt")
+    if is_main:
+        wait_pending_saves()
+        best = wdir / "best.ckpt"
+        strip_checkpoint(best if best.exists() else wdir / "last.ckpt",
+                         wdir / "stripped.ckpt")
     if can_plot:
         try:   # results.png and the confusion matrix (plots.py:457)
             plot_results(results_csv)

@@ -24,10 +24,12 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 from icafusion_tpu_torch.config import HypConfig
 from icafusion_tpu_torch.ops.boxes import bbox_iou
+from icafusion_tpu_torch.parallel.mesh import world
 
 # neighbour-cell offsets with the g = 0.5 bias (loss.py:417-421)
 _G = 0.5
@@ -167,21 +169,19 @@ class YoloLoss:
             return focal_bce_with_logits(logits, t, self.hyp.fl_gamma, pw)
         return bce_with_logits(logits, t, pw)
 
-    def __call__(self, preds: Sequence[torch.Tensor], targets, mask):
-        """preds: nl tensors (B, ny, nx, na, 5 + nc); targets (B, T, 5);
-        mask (B, T) bool. Returns (total loss, items [box, obj, cls, 0]),
-        float32, as loss.py:400-407."""
+    def terms(self, preds: Sequence[torch.Tensor], targets, mask):
+        """The loss's sums before normalisation: (num, den), num (3, nl)
+        the box, objectness and class sums of each level, den (2, nl) its
+        count of valid candidates and of cells. Sums over disjoint parts of
+        a batch add up to the whole batch's."""
         B = preds[0].shape[0]
         dev = preds[0].device
-        lbox = torch.zeros((), device=dev)
-        lobj = torch.zeros((), device=dev)
-        lcls = torch.zeros((), device=dev)
+        num, den = [], []
         for i, p in enumerate(preds):
             p = p.float()
             _, ny, nx, na, no = p.shape
             c = self._level_candidates(i, ny, nx, targets, mask)
             valid = c["valid"]
-            denom = valid.sum().float().clamp(min=1.0)
 
             flat = ((c["b"] * ny + c["gj"]) * nx + c["gi"]) * na + c["a"]
             ps = p.reshape(-1, no)[flat]                         # (C, no)
@@ -191,7 +191,7 @@ class YoloLoss:
             iou = bbox_iou(torch.cat([pxy, pwh], -1),
                            torch.cat([c["txy"], c["twh"]], -1),
                            x1y1x2y2=False, CIoU=True)
-            lbox = lbox + torch.where(valid, 1.0 - iou, 0.0).sum() / denom
+            box = torch.where(valid, 1.0 - iou, 0.0).sum()
 
             # objectness target: scatter-max of the candidates' IoU
             score = iou.detach().clamp(min=0.0)
@@ -199,23 +199,56 @@ class YoloLoss:
                                    0.0)
             tobj = torch.zeros(B * ny * nx * na, device=dev).scatter_reduce(
                 0, flat, tobj_val, reduce="amax", include_self=True)
-            obji = self._bce(p[..., 4].reshape(-1), tobj,
-                             self.hyp.obj_pw).mean()
-            lobj = lobj + obji * self.balance[i]
+            obj = self._bce(p[..., 4].reshape(-1), tobj,
+                            self.hyp.obj_pw).sum()
 
+            cls = torch.zeros((), device=dev)
             if self.nc > 1:
                 hot = F.one_hot(c["cls"], self.nc).bool()
                 tcls = torch.where(hot, self.cp, self.cn)
                 cls_loss = self._bce(ps[:, 5:], tcls, self.hyp.cls_pw)
-                cls_loss = torch.where(valid[:, None], cls_loss, 0.0)
-                lcls = lcls + cls_loss.sum() / (denom * self.nc)
+                cls = torch.where(valid[:, None], cls_loss, 0.0).sum()
+            num.append(torch.stack([box, obj, cls]))
+            den.append(torch.stack([valid.sum().float(),
+                                    torch.full((), float(tobj.numel()),
+                                               device=dev)]))
+        return torch.stack(num, 1), torch.stack(den, 1)
 
+    def normalise(self, num, den, batch):
+        """(total loss, items [box, obj, cls, 0]) from terms' sums and the
+        batch size: box and class sums over max(valid, 1), objectness over
+        the cells, per-level balance, gains, total times the batch."""
+        lbox = lobj = lcls = torch.zeros((), device=num.device)
+        for i in range(num.shape[1]):
+            denom = den[0, i].clamp(min=1.0)
+            lbox = lbox + num[0, i] / denom
+            lobj = lobj + num[1, i] / den[1, i] * self.balance[i]
+            if self.nc > 1:
+                lcls = lcls + num[2, i] / (denom * self.nc)
         lbox = lbox * self.box_gain
         lobj = lobj * self.obj_gain
         lcls = lcls * self.cls_gain
-        lrk = torch.zeros((), device=dev)   # the disabled ranking-loss slot
-        return (lbox + lobj + lcls + lrk) * B, torch.stack(
+        lrk = torch.zeros((), device=num.device)  # the ranking-loss slot
+        return (lbox + lobj + lcls + lrk) * batch, torch.stack(
             [lbox, lobj, lcls, lrk])
+
+    def __call__(self, preds: Sequence[torch.Tensor], targets, mask):
+        """preds: nl tensors (B, ny, nx, na, 5 + nc); targets (B, T, 5);
+        mask (B, T) bool. Returns (total loss, items [box, obj, cls, 0]),
+        float32, as loss.py:400-407.
+
+        Under a process group of more than one rank (parallel/mesh.py),
+        as BatchNorm2d takes it, the rank holds one share of a global
+        batch: the counts and the batch size are summed over the group
+        first, so the rank's loss is its share of the global loss, and the
+        shares (and their gradients) sum to it."""
+        num, den = self.terms(preds, targets, mask)
+        batch = torch.full((), float(preds[0].shape[0]), device=num.device)
+        if world() > 1:
+            counts = torch.cat([den.flatten(), batch[None]])
+            torch.distributed.all_reduce(counts)
+            den, batch = counts[:-1].view_as(den), counts[-1]
+        return self.normalise(num, den, batch)
 
 
 def pad_targets(label_list: Sequence[np.ndarray], max_targets: int):

@@ -12,11 +12,20 @@ train.py:263-366):
   microbatches whose gradients are summed before one optimizer step, the
   BatchNorm statistics updated in sequence;
 - ModelEMA after each optimizer step;
-- the loss gains rescaled by nl, nc and imgsz (``scaled_gains``).
+- the loss gains rescaled by nl, nc and imgsz (``scaled_gains``);
+- data parallel over a process group (parallel/mesh.py): each rank holds
+  its share of every microbatch, BatchNorm and the loss's normalisers are
+  global, and after the last microbatch's backward the gradients and the
+  metrics are summed across the ranks in one all-reduce (a sum: each
+  share already carries the global normalisers), so every rank takes the
+  same optimizer and EMA step and the state stays equal across them.
+  ``batch_size`` is then the global microbatch.
 
 The Trainer owns the state: the model on its device in train mode, the
 optimizer buffers, the EMA shadow, and the torch.Generator its dropout
-draws from. It runs on CUDA unless the CPU is asked for.
+draws from, seeded from (seed, step, rank): the JAX package draws one mask
+over the global batch, so runs with dropout on differ from it by design.
+It runs on CUDA unless the CPU is asked for.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from icafusion_tpu_torch.models.assembler import (ICAFusionModel,
                                                   anchors_grid_units,
                                                   model_strides)
 from icafusion_tpu_torch.nn.fusion import Dropout, resize_linear
+from icafusion_tpu_torch.parallel.mesh import rank, world
 from icafusion_tpu_torch.train.ema import ema_init, ema_update, ema_variables
 from icafusion_tpu_torch.train.loss import YoloLoss
 from icafusion_tpu_torch.train.optim import YoloAdam, YoloSGD
@@ -60,7 +70,7 @@ class Trainer:
     hyp: HypConfig
     epochs: int
     steps_per_epoch: int
-    batch_size: int                 # images per microbatch
+    batch_size: int                 # images per (global) microbatch
     imgsz: int = 640
     accum_steps: int = 1
     ema_decay: float = 0.9999
@@ -99,11 +109,11 @@ class Trainer:
         self.reseed()
 
     def reseed(self):
-        """Seed the dropout generator from (rng, optimizer step) and hand it
-        to every Dropout of the model."""
+        """Seed the dropout generator from (rng, optimizer step, rank) and
+        hand it to every Dropout of the model."""
         key = int(self.rng[0]) << 32 | int(self.rng[1])
-        self.generator.manual_seed((key * 1_000_003 + self.opt.step)
-                                   % 2 ** 63)
+        self.generator.manual_seed((key * 1_000_003 + self.opt.step
+                                    + (rank() << 40)) % 2 ** 63)
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.generator
@@ -114,12 +124,25 @@ class Trainer:
             preds = self.model(rgb, ir)
         return self.loss_fn(preds, targets, mask)
 
+    def _all_reduce(self, grads: dict, *metrics):
+        """Sum the gradients and the metrics over the process group in one
+        flat all-reduce, in place."""
+        flat = torch.cat([g.reshape(-1) for g in grads.values()]
+                         + [m.reshape(-1) for m in metrics])
+        torch.distributed.all_reduce(flat)
+        i = 0
+        for t in list(grads.values()) + list(metrics):
+            t.copy_(flat[i:i + t.numel()].view_as(t))
+            i += t.numel()
+
     def make_train_step(self, scale: float = 1.0,
                         grad_mask=None) -> Callable:
         """step(rgb, ir, targets, mask) -> metrics, the state updated in
         place. rgb/ir: (A*B, 3, H, W) float in [0, 1] on the device;
-        targets (A*B, T, 5); mask (A*B, T), A = accum_steps. Metrics are
-        tensors on the device (loss, lbox, lobj, lcls) and the group-1 lr of
+        targets (A*B, T, 5); mask (A*B, T), A = accum_steps; under a
+        process group, this rank's rows of each microbatch in turn
+        (parallel/mesh.process_rows). Metrics are tensors on the device
+        (loss, lbox, lobj, lcls: the global batch's) and the group-1 lr of
         this step.
 
         scale != 1 resizes the batch to round(H * scale / 32) * 32 before
@@ -148,7 +171,10 @@ class Trainer:
                 loss.backward()
                 loss_sum += loss.detach()
                 items_sum += items.detach()
-            grads = {k: p.grad for k, p in self.params.items()}
+            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                     for k, p in self.params.items()}
+            if world() > 1:
+                self._all_reduce(grads, loss_sum, items_sum)
             self.optimizer.update(self.params, grads, self.opt, self.paths)
             ema_update(self.ema, ema_variables(self.model), self.ema_decay)
             loss, items = loss_sum / A, items_sum / A

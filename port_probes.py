@@ -54,6 +54,18 @@ gated run does not make. Each subcommand needs a CUDA device.
         far whole readings of the summed int8 time and of device busy
         spread on one build.
 
+    python3 port_probes.py dist-faults
+
+        Whether chip_smoke.py's phase 12b can fail: its one process on the
+        global batch and its gates (chip_smoke.dist_reference), then its
+        two gloo ranks on cuda:0 three times, as they are and with a fault
+        planted in both ranks at run time: the gradients averaged over the
+        ranks where they must be summed, and BatchNorm's all-reduces
+        skipped (each rank normalises by its own rows' statistics). Prints
+        each run's losses, first-step gradients and state against the one
+        process's, beside the gates, and whether the ranks' states are
+        bit-equal.
+
 Each prints one JSON object as its last line.
 """
 
@@ -379,6 +391,58 @@ def int8_forward(card: str) -> dict:
             "idle_share": {k: v and v[1] for k, v in busy.items()}}
 
 
+DIST_FAULTS = (None, "gradients averaged", "BatchNorm local")
+
+
+def _fault_rank(ref_path: str, fault) -> dict:
+    """One rank of chip_smoke.py's 12b fp32 steps with ``fault`` planted."""
+    import chip_smoke as cs
+    if fault == "gradients averaged":
+        from icafusion_tpu_torch.parallel.mesh import world
+        from icafusion_tpu_torch.train.trainer import Trainer
+        real = Trainer._all_reduce
+
+        def averaged(self, grads, *metrics):
+            real(self, grads, *metrics)
+            for g in grads.values():
+                g.div_(world())
+
+        Trainer._all_reduce = averaged
+    elif fault == "BatchNorm local":
+        from icafusion_tpu_torch.nn import layers
+        layers.all_reduce_sum = lambda x: x
+    return cs.dist_rank_fp32(ref_path)[0]
+
+
+def dist_faults() -> dict:
+    import tempfile
+    import chip_smoke as cs
+    from icafusion_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False    # as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = str(Path(tmp) / "ref.pt")
+        losses, drift, tol, _ = cs.dist_reference(Path(ref))
+        res["one process"] = {"losses": [r["loss"] for r in losses],
+                              "drift": drift, "gate": tol}
+        print(f"   one process: losses {[r['loss'] for r in losses]}")
+        for fault in DIST_FAULTS:
+            out = mesh.spawn(_fault_rank, 2, (ref, fault), backend="gloo",
+                             timeout=400)
+            name = fault or "as shipped"
+            failed = [k for k in tol if out[k] > tol[k]]
+            res[name] = {**{k: out[k] for k in tol},
+                         "losses": [r["loss"] for r in out["losses"]],
+                         "equal": out["equal"], "fails": failed}
+            print(f"   {name}: losses {res[name]['losses']}")
+            for k, what in cs.DIST_MEASURES:
+                print(f"     {what}: {out[k]:.3g} (gate {tol[k]:.3g}"
+                      f"{', fails' if k in failed else ''})")
+            print(f"     state bit-equal across ranks: {out['equal']}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -388,6 +452,7 @@ def main(argv=None) -> int:
     sub.add_parser("int8-splits")
     sub.add_parser("int8-phases")
     sub.add_parser("int8-forward")
+    sub.add_parser("dist-faults")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("port_probes: no CUDA device", file=sys.stderr)
@@ -406,6 +471,8 @@ def main(argv=None) -> int:
         res = {"int8_phases": int8_phases()}
     elif args.cmd == "int8-forward":
         res = {"int8_forward": int8_forward(card)}
+    elif args.cmd == "dist-faults":
+        res = {"dist_faults": dist_faults()}
     else:
         res = {"fp64": fp64(FP64_CFG, FP64_SIZE, FP64_SCALES)}
     res["card"] = card

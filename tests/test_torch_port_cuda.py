@@ -601,3 +601,74 @@ def test_batcher_and_predict_paths_on_the_card_match_the_cpu(dev, tmp_path):
     for g, w in zip(got, want):
         assert chip_smoke.matched(g, w) >= 0.9
         assert chip_smoke.matched(w, g) >= 0.9
+
+
+# ---- data parallel on the one card (parallel/mesh.py) ---------------------
+
+
+def test_replica_engine_on_one_card_matches_one_replica(dev):
+    """ServingEngine(n_devices=2) of yolov5l-Transfusion at 640 in bf16, both
+    replicas on cuda:0 (chip_smoke.two_replicas_on_one_card), one batch of
+    4 against two one-replica batches of 2: the same detections (boxes
+    within 1e-3 px), each kernel launched once per replica."""
+    from icafusion_tpu_torch.models.zoo import icafusion_config
+    model = build_model(icafusion_config("l", nc=3),
+                        generator=torch.Generator().manual_seed(0))
+    with chip_smoke.two_replicas_on_one_card():
+        two = ServingEngine(model, 640, 4, conf_thres=0.001, n_devices=2)
+    one = ServingEngine(model, 640, 2, conf_thres=0.001)
+    rng = np.random.default_rng(3)
+    rgb, ir = (rng.integers(0, 256, (4, 640, 640, 3), np.uint8)
+               for _ in range(2))
+    two.predict_arrays(rgb, ir)
+    a0, n0 = dual_cross_attention.launches, greedy_nms.launches
+    got = two.predict_arrays(rgb, ir)
+    assert (dual_cross_attention.launches - a0,
+            greedy_nms.launches - n0) == (6, 2)
+    want = one.predict_arrays(rgb[:2], ir[:2]) + one.predict_arrays(
+        rgb[2:], ir[2:])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g[:, 5], w[:, 5])
+        np.testing.assert_allclose(g[:, :5], w[:, :5], rtol=0, atol=1e-3)
+
+
+def _bn_rank(x, g):
+    """One gloo rank of the test below: its rows through BatchNorm2d on
+    cuda:0, the gradient of sum(y * g); everything gathered on rank 0."""
+    import torch.distributed as dist
+
+    from icafusion_tpu_torch.nn.layers import BN_EPS, BN_MOMENTUM, BatchNorm2d
+    from icafusion_tpu_torch.parallel import mesh
+    lo, hi = mesh.process_batch_slice(len(x))
+    bn = BatchNorm2d(x.shape[1], eps=BN_EPS, momentum=BN_MOMENTUM).cuda()
+    xr = torch.from_numpy(x[lo:hi]).cuda().requires_grad_()
+    y = bn.train()(xr)
+    (y * torch.from_numpy(g[lo:hi]).cuda()).sum().backward()
+    out = [None] * mesh.world()
+    dist.all_gather_object(out, {k: v.detach().cpu().numpy() for k, v in (
+        ("y", y), ("dx", xr.grad), ("var", bn.running_var))})
+    return out
+
+
+def test_batchnorm_over_two_gloo_ranks_on_one_card(dev):
+    """Two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one GPU),
+    each with 4 of a global batch of 8 at the first C3's width and map of
+    yolov5l 640 (128 channels at 160 x 160): BatchNorm's output, input
+    gradient and running variance equal one process's on the 8, within
+    fp32 summation noise (1e-4 of values of order 1)."""
+    from icafusion_tpu_torch.nn.layers import BN_EPS, BN_MOMENTUM, BatchNorm2d
+    from icafusion_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(4)
+    x = (rng.normal(0, 2, (8, 128, 160, 160)) + 1).astype(np.float32)
+    g = rng.normal(0, 1, x.shape).astype(np.float32)
+    ranks = mesh.spawn(_bn_rank, 2, (x, g), backend="gloo", timeout=300)
+    bn = BatchNorm2d(128, eps=BN_EPS, momentum=BN_MOMENTUM).to(dev).train()
+    xt = torch.from_numpy(x).to(dev).requires_grad_()
+    y = bn(xt)
+    (y * torch.from_numpy(g).to(dev)).sum().backward()
+    for k, want in (("y", y), ("dx", xt.grad)):
+        np.testing.assert_allclose(np.concatenate([r[k] for r in ranks]),
+                                   want.detach().cpu().numpy(), atol=1e-4)
+    np.testing.assert_array_equal(ranks[0]["var"], ranks[1]["var"])
+    np.testing.assert_allclose(ranks[0]["var"], bn.running_var.cpu().numpy(),
+                               rtol=1e-5)

@@ -325,15 +325,18 @@ def test_evaluator_map_over_the_val_set(n320):
 
 
 def test_evaluator_refuses_what_is_not_ported(n320):
-    """n_devices (ROADMAP A8) and the CUDA default; the val loss under TTA
-    is refused as in JAX."""
+    """The CUDA default; rows that do not divide over the replicas
+    (n_devices) and the val loss under TTA are refused as in JAX."""
     if torch.cuda.is_available():
         assert evaluator.Evaluator(n320, 3).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             evaluator.Evaluator(n320, 3)
-    with pytest.raises(NotImplementedError, match="not ported.*A8"):
-        evaluator.Evaluator(n320, 3, device="cpu", n_devices=2)
+    ev3 = evaluator.Evaluator(n320, 3, device="cpu", n_devices=3)
+    assert len(ev3.replicas) == 3 and ev3.model is ev3.replicas[0]
+    z = np.zeros((8, 64, 64, 3), np.uint8)
+    with pytest.raises(ValueError, match="8 rows do not divide over 3"):
+        ev3._infer(z, z)
     with pytest.raises(ValueError, match="TTA"):
         evaluator.Evaluator(n320, 3, device="cpu", augment=True,
                             loss_fn=lambda *a: None)

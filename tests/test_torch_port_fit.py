@@ -146,12 +146,16 @@ def test_fit_writes_the_reference_row(data_yaml, tmp_path, monkeypatch,
         assert (run / "train_batch0.jpg").is_file()
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"distributed": True}, "A8"), ({"n_devices": 2}, "A8"),
-    ({"merge_streams": 2}, "A10"),
-    ({"pretrained": "yolov5l.pt"}, "A10")])
-def test_unported_fit_options_raise(data_yaml, tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("kw,err,match", [
+    # data parallel: no torchrun environment to join, no device
+    ({"distributed": True}, ValueError, "RANK expected"),
+    ({"n_devices": 0}, ValueError, "n_devices 0 < 1"),
+    ({"merge_streams": 2}, NotImplementedError, "A10"),
+    ({"pretrained": "yolov5l.pt"}, NotImplementedError, "A10")])
+def test_unported_fit_options_raise(data_yaml, tmp_path, kw, err, match,
+                                    monkeypatch):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(err, match=match):
         fit(_cfg(data_yaml, tmp_path, **kw))
 
 

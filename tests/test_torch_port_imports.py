@@ -26,6 +26,7 @@ serve = ("cli.detect", "data.decode", "data.streams", "hub", "ops.nms",
          "utils.plots")
 assert all("icafusion_tpu_torch." + t in names for t in serve), names
 assert "icafusion_tpu_torch.nn.backbones" in names, names
+assert "icafusion_tpu_torch.parallel.mesh" in names, names
 import chip_smoke, port_probes
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu",
@@ -40,7 +41,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
-    assert int(n) >= 57, out.stdout      # every module was walked
+    assert int(n) >= 59, out.stdout      # every module was walked
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
