@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from pathlib import Path
 
+import torch
+
 from icafusion_tpu_torch.utils.general import not_ported
 
 
@@ -33,17 +35,27 @@ def resolve_model_config(cfg: str, nc=None):
 
 def load_model_for_inference(cfg: str, weights: str, nc=None, merge=0):
     """(model config, float32 model holding the checkpoint's inference
-    weights: EMA first). weights is a .ckpt of either package; a reference
-    .pt and stream merging (merge other than 0) are not ported (A10)."""
+    weights: EMA first). weights is a .ckpt of either package or a
+    reference .pt (utils/torch_convert: every port tensor the .pt names is
+    filled, the rest keep a seeded draw, as the JAX package keeps its
+    init's); a missing .pt raises FileNotFoundError. Stream merging (merge
+    other than 0) is not ported (A10)."""
     from icafusion_tpu_torch.models.assembler import build_model
     from icafusion_tpu_torch.utils.checkpoint import load_inference_variables
     from icafusion_tpu_torch.utils.convert import load_jax_variables
 
     if str(merge) not in ("0", ""):
         not_ported(f"--merge {merge} (stream merging)", "A10")
-    if Path(weights).suffix == ".pt":
-        not_ported("a reference .pt as weights", "A10")
     mc = resolve_model_config(cfg, nc=nc)
+    if Path(weights).suffix == ".pt":
+        from icafusion_tpu_torch.utils.torch_convert import (
+            convert_state_dict, load_torch_checkpoint)
+        if not Path(weights).is_file():
+            raise FileNotFoundError(f"no reference checkpoint {weights}")
+        model = build_model(mc, generator=torch.Generator().manual_seed(0))
+        model, _ = convert_state_dict(load_torch_checkpoint(weights), model,
+                                      strict=False)
+        return mc, model
     model = load_jax_variables(build_model(mc),
                                load_inference_variables(weights))
     return mc, model

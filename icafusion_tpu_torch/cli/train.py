@@ -34,7 +34,8 @@ def parse_args(argv=None):
     ap.add_argument("--data", required=True, help="dataset yaml")
     ap.add_argument("--hyp", default=None, help="hyperparameter yaml")
     ap.add_argument("--weights", default=None,
-                    help="pretrained .ckpt (a reference .pt is not ported)")
+                    help="pretrained .ckpt, or a reference .pt (a "
+                         "single-stream one seeds both towers)")
     ap.add_argument("--resume", default=None, help="checkpoint to resume from")
     ap.add_argument("--epochs", type=int, default=60)
     ap.add_argument("--batch-size", type=int, default=8)

@@ -23,8 +23,7 @@ import numpy as np
 def parse_args(argv=None):
     ap = argparse.ArgumentParser("icafusion-torch-val")
     ap.add_argument("--weights", required=True,
-                    help=".ckpt of either package (a reference .pt is not "
-                         "ported)")
+                    help=".ckpt of either package, or a reference .pt")
     ap.add_argument("--cfg", required=True,
                     help="model yaml or zoo:<fusion>:<scale> / zoo:tiny / "
                          "zoo:vgg16 / zoo:resnet50")

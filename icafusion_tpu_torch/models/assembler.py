@@ -7,9 +7,11 @@ models/yolo_test.py:115-163 forward_once, :216-302 parse_model):
   width_multiple scaling, and the save-list of outputs later layers read;
 - a layer with ``from: -4`` reads the second (IR) image, so the layers
   before the first fusion form two independent towers;
-- modules come from a registry (``MODULE_BUILDERS``) instead of eval();
-  a module missing from it raises "not ported". Layers are registered as
-  ``m{i}``, the flax names.
+- modules come from a registry (``MODULE_BUILDERS``, every name of the
+  JAX package's) instead of eval(); a module missing from it raises "not
+  ported". A row repeated n > 1 times whose module does not take n itself
+  becomes a ``Repeat`` of n copies. Layers are registered as ``m{i}``,
+  the flax names.
 """
 
 from __future__ import annotations
@@ -30,19 +32,42 @@ from icafusion_tpu_torch.nn import backbones, fusion, layers
 from icafusion_tpu_torch.utils.general import make_divisible
 
 # first two resolved args are (c1, c2); c2 is width-scaled
-_CONV_LIKE = {"Conv", "Bottleneck", "SPPF", "Focus", "C3"}
+_CONV_LIKE = {"Conv", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP",
+              "SPPF", "DWConv", "MixConv2d", "Focus", "CrossConv",
+              "BottleneckCSP", "C3", "C3TR"}
 # modules that take the repeat count as an inner depth argument
-_ABSORB_N = {"C3"}
+_ABSORB_N = {"BottleneckCSP", "C3", "C3TR"}
 
 MODULE_BUILDERS = {
     "Conv": lambda a: layers.Conv(*a),
+    "DWConv": lambda a: layers.DWConv(*a),
     "Bottleneck": lambda a: layers.Bottleneck(*a),
+    "BottleneckCSP": lambda a: layers.BottleneckCSP(*a),
     "C3": lambda a: layers.C3(*a),
+    "C3TR": lambda a: layers.C3TR(*a),
+    "SPP": lambda a: layers.SPP(a[0], a[1],
+                                tuple(a[2]) if len(a) > 2 else (5, 9, 13)),
     "SPPF": lambda a: layers.SPPF(*a),
     "Focus": lambda a: layers.Focus(*a),
+    "CrossConv": lambda a: layers.CrossConv(*a),
+    "GhostConv": lambda a: layers.GhostConv(*a),
+    "GhostBottleneck": lambda a: layers.GhostBottleneck(*a),
+    "MixConv2d": lambda a: layers.MixConv2d(
+        a[0], a[1], tuple(a[2]) if len(a) > 2 else (1, 3),
+        a[3] if len(a) > 3 else 1),
+    "Contract": lambda a: layers.Contract(a[0]),
+    "Expand": lambda a: layers.Expand(a[0]),
     "Concat": lambda a: layers.Concat(a[0] if a else 1),
     "Upsample": lambda a: layers.Upsample(
         a[0], a[1] if len(a) > 1 else None, a[2] if len(a) > 2 else "nearest"),
+    "BatchNorm2d": lambda a: layers.BatchNormLayer(a[0]),
+    "MaxPool2d": lambda a: layers.MaxPool2d(a[0], a[1] if len(a) > 1
+                                            else a[0]),
+    "SE_Block": lambda a: layers.SE_Block(*a),
+    "CBAM": lambda a: layers.CBAM(*a),
+    "Channel_Attention": lambda a: layers.ChannelAttention(*a),
+    "Spatial_Attention": lambda a: layers.SpatialAttention(*a),
+    "Classify": lambda a: layers.Classify(*a),
     "TransformerFusionBlock": lambda a: fusion.TransformerFusionBlock(
         d_model=a[0], vert_anchors=a[1], horz_anchors=a[2]),
     "Add": lambda a: fusion.Add(),
@@ -54,6 +79,23 @@ MODULE_BUILDERS = {
     "ResNetlayer": lambda a: backbones.ResNetlayer(*a),
     "Detect": lambda a: Detect(*a),
 }
+
+
+class Repeat(nn.Module):
+    """n independent copies of a module applied in turn, r0..r{n-1} (the
+    JAX package's _Repeat; reference parse_model's nn.Sequential for a
+    repeated row that does not take n itself, yolo_test.py:290)."""
+
+    def __init__(self, module: str, args: Tuple[Any, ...], n: int):
+        super().__init__()
+        self.n = n
+        for j in range(n):
+            self.add_module(f"r{j}", MODULE_BUILDERS[module](args))
+
+    def forward(self, x):
+        for j in range(self.n):
+            x = getattr(self, f"r{j}")(x)
+        return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +148,9 @@ def resolve_model(cfg: ModelConfig) -> Tuple[Tuple[ResolvedLayer, ...],
             c2 = args[1] if args[3] else 4 * args[1]
         elif m == "VGGblock":        # [num_convs, c1, c2]
             c2 = args[2]
+        elif m == "BatchNorm2d":
+            c2 = src_ch(f)
+            args = [c2]
         elif m == "Concat":
             c2 = sum(src_ch(x) for x in f)
         elif m in ("Add", "DMAF"):
@@ -121,14 +166,15 @@ def resolve_model(cfg: ModelConfig) -> Tuple[Tuple[ResolvedLayer, ...],
         elif m == "Detect":
             args.append(tuple(src_ch(x) for x in f))
             c2 = -1
+        elif m == "Contract":
+            c2 = src_ch(f) * args[0] ** 2
+        elif m == "Expand":
+            c2 = src_ch(f) // args[0] ** 2
         elif m == "TransformerFusionBlock":
             c2 = src_ch(f[0])
             args = [c2, *args[1:]]
         else:
             c2 = src_ch(f) if isinstance(f, int) else src_ch(f[0])
-        if n > 1:
-            raise ValueError(f"layer {i}: {m} repeated {n} times is not "
-                             "ported")
         resolved.append(ResolvedLayer(i=i, f=f, n=n, module=m,
                                       args=tuple(args), c2=c2))
         for x in (f if isinstance(f, tuple) else (f,)):
@@ -151,7 +197,9 @@ class ICAFusionModel(nn.Module):
         self.cfg = cfg
         self.resolved, self.save = resolve_model(cfg)
         for r in self.resolved:
-            self.add_module(f"m{r.i}", MODULE_BUILDERS[r.module](r.args))
+            self.add_module(f"m{r.i}", Repeat(r.module, r.args, r.n)
+                            if r.n > 1 and r.module != "Detect"
+                            else MODULE_BUILDERS[r.module](r.args))
         self.train(False)
 
     def cast(self, dtype: torch.dtype) -> "ICAFusionModel":
@@ -227,7 +275,9 @@ def init_weights(model: ICAFusionModel,
     attention projections N(0, 0.001) with zero biases; the MLP kernels U(+-1/sqrt(fan_in)) with zero biases;
     norms at scale 1, bias 0 and BatchNorm statistics at mean 0, var 1;
     the residual gains 1, the pooling blend 0.5 and 0.5, the positional
-    embeddings 0. (build_model's He-uniform draw is for serving.)"""
+    embeddings 0; in the legacy modules, the layers flax leaves at its
+    default init lecun normal with zero biases. (build_model's He-uniform
+    draw is for serving.)"""
     from icafusion_tpu_torch.nn import fusion as fu
     init = nn.init
     with torch.no_grad():
@@ -262,13 +312,46 @@ def init_weights(model: ICAFusionModel,
             elif isinstance(m, fu.TransformerFusionBlock):
                 init.zeros_(m.pos_emb_vis)
                 init.zeros_(m.pos_emb_ir)
+        # the legacy modules' layers that keep flax's default init in the
+        # JAX package (its Dense, DenseGeneral and bare Conv without
+        # kernel_init): lecun normal kernels, zero biases
+        for m in model.modules():
+            if isinstance(m, _FLAX_DEFAULT_INIT):
+                for c in m.children():
+                    if isinstance(c, (nn.Conv2d, nn.Linear,
+                                      layers.DenseGeneral)):
+                        _lecun_normal(c, generator)
     return model
+
+
+_FLAX_DEFAULT_INIT = (layers.MultiHeadDotProductAttention,
+                      layers.TransformerLayer, layers.TransformerBlock,
+                      layers.MixConv2d, layers.SE_Block,
+                      layers.ChannelAttention, layers.SpatialAttention,
+                      layers.Classify)
+
+
+def _fan_in(m: nn.Module) -> int:
+    return (m.fan_in if isinstance(m, layers.DenseGeneral)
+            else m.weight[0].numel())
+
+
+def _lecun_normal(m: nn.Module, generator: Optional[torch.Generator]):
+    """flax's lecun_normal: a normal of variance 1 / fan_in truncated at two
+    standard deviations (rescaled so that the variance stays 1 / fan_in)."""
+    w = m.kernel if isinstance(m, layers.DenseGeneral) else m.weight
+    std = math.sqrt(1.0 / _fan_in(m)) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+    if m.bias is not None:
+        nn.init.zeros_(m.bias)
 
 
 def build_model(cfg: ModelConfig,
                 generator: Optional[torch.Generator] = None) -> ICAFusionModel:
     """The model in float32. With ``generator``, every conv and linear layer
-    is drawn anew from it, weights He-uniform (kaiming_uniform, a=0) so that
+    (C3TR's attention projections too) is drawn anew from it, weights
+    He-uniform (kaiming_uniform, a=0) so that
     activations keep their scale through the towers and the random model's
     outputs vary with its input, biases U(+-1/sqrt(fan_in)); the weights then
     depend on the generator's seed alone. The other parameters keep their
@@ -280,8 +363,14 @@ def build_model(cfg: ModelConfig,
                 if isinstance(m, (nn.Conv2d, nn.Linear)):
                     nn.init.kaiming_uniform_(m.weight, a=0.0,
                                              generator=generator)
-                    if m.bias is not None:
-                        bound = 1.0 / math.sqrt(m.weight[0].numel())
-                        nn.init.uniform_(m.bias, -bound, bound,
-                                         generator=generator)
+                elif isinstance(m, layers.DenseGeneral):   # C3TR's heads
+                    bound = math.sqrt(6.0 / m.fan_in)
+                    nn.init.uniform_(m.kernel, -bound, bound,
+                                     generator=generator)
+                else:
+                    continue
+                if m.bias is not None:
+                    bound = 1.0 / math.sqrt(_fan_in(m))
+                    nn.init.uniform_(m.bias, -bound, bound,
+                                     generator=generator)
     return model

@@ -2,10 +2,10 @@
 (reference train.py:42-490).
 
 Config -> datasets and loaders -> anchor check -> model (init_weights, or
-pretrained from a .ckpt) -> Trainer steps on the card -> per-epoch
-evaluation of the EMA weights by the Evaluator (the port's three CUDA
-kernels) -> results.csv -> last/best checkpoints in the JAX package's
-format -> the stripped EMA checkpoint.
+pretrained from a .ckpt or a reference .pt) -> Trainer steps on the card ->
+per-epoch evaluation of the EMA weights by the Evaluator (the port's three
+CUDA kernels) -> results.csv and TensorBoard scalars -> last/best
+checkpoints in the JAX package's format -> the stripped EMA checkpoint.
 
 results.csv is the native 11-column row or the reference's 29-key row
 (results_format="reference": val losses from the Evaluator's loss_fn on the
@@ -28,9 +28,13 @@ picks the run directory and the anchors and alone writes files and
 evaluates; the other ranks wait for it at a barrier. A rank's failure fails
 the call.
 
+pretrained is a .ckpt of either package or a reference .pt
+(utils/torch_convert), a single-stream one remapped onto both towers.
+Rank 0 writes the nine TensorBoard scalars of each epoch (losses, P, R,
+mAP, lr) where torch.utils.tensorboard imports (utils/loggers.py).
+
 Not ported, and refused with the ROADMAP item named: stream-merged
-training, a reference .pt as pretrained weights. The TensorBoard facade of
-the JAX fit is left out (it never gates a run there either).
+training.
 """
 
 from __future__ import annotations
@@ -65,12 +69,16 @@ from icafusion_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   strip_checkpoint,
                                                   wait_pending_saves)
 from icafusion_tpu_torch.utils.convert import load_jax_variables
+from icafusion_tpu_torch.utils.loggers import Loggers
 from icafusion_tpu_torch.utils.plots import (plot_confusion_matrix,
                                              plot_images, plot_labels,
                                              plot_results)
 from icafusion_tpu_torch.utils.general import (increment_path,
                                                labels_to_class_weights,
                                                not_ported, resolve_device)
+from icafusion_tpu_torch.utils.torch_convert import (
+    convert_state_dict, load_torch_checkpoint,
+    remap_single_stream_to_two_stream)
 
 RESULTS_HEADER = ["epoch", "lbox", "lobj", "lcls", "P", "R", "mAP50", "mAP",
                   "fitness", "lr", "time_s"]
@@ -146,7 +154,7 @@ class FitConfig:
     max_targets: int = 128
     eval_every: int = 1
     save_every: int = 1                  # last.ckpt period (epochs)
-    pretrained: Optional[str] = None     # a .ckpt (a reference .pt: A10)
+    pretrained: Optional[str] = None     # a .ckpt or a reference .pt
     resume: Optional[str] = None
     n_devices: Optional[int] = None      # local ranks (None: every card,
                                          # or the one card named)
@@ -172,11 +180,11 @@ class FitConfig:
 def _check_ported(cfg: FitConfig):
     if cfg.merge_streams:
         not_ported("merge_streams", "A10")
+    if cfg.pretrained and not Path(cfg.pretrained).is_file():
+        raise FileNotFoundError(f"no pretrained weights {cfg.pretrained}")
     if cfg.results_format not in ("native", "reference"):
         raise ValueError(f"results_format {cfg.results_format!r}: 'native' "
                          "or 'reference'")
-    if cfg.pretrained and not cfg.pretrained.endswith(".ckpt"):
-        not_ported("a reference .pt as pretrained weights", "A10")
 
 
 def _write_run_files(run_dir: Path, cfg: FitConfig):
@@ -198,7 +206,17 @@ def _write_run_files(run_dir: Path, cfg: FitConfig):
 
 
 def _load_pretrained(path: str, model: ICAFusionModel):
-    """The EMA tree of a .ckpt (else its weights) into ``model``."""
+    """A reference .pt (utils/torch_convert; a single-stream one, with no
+    model.10 key, has its backbone copied into the IR tower, reference
+    train.py:94-99; tensors it does not name keep their init), or the EMA
+    tree of a .ckpt (else its weights), into ``model``."""
+    if path.endswith(".pt"):
+        sd = load_torch_checkpoint(path)
+        if not any(k.startswith("model.10.") for k in sd):
+            sd = remap_single_stream_to_two_stream(sd)
+        _, unused = convert_state_dict(sd, model, strict=False)
+        print(f"pretrained: converted {path} ({len(unused)} unused ref keys)")
+        return
     ckpt = load_checkpoint(path)
     tree = ckpt.get("ema_tree", ckpt)
     load_jax_variables(model, {k: tree[k] for k in ("params", "batch_stats")
@@ -366,6 +384,8 @@ def _fit(cfg: FitConfig, device: torch.device) -> dict:
             plot_labels(train_ds.labels, names, run_dir)
         except Exception as e:
             log(f"plot_labels failed: {e}")
+    # TensorBoard scalars each epoch, rank 0 (train.py:586)
+    loggers = Loggers(run_dir, enable_tb=is_main)
     results_csv = run_dir / "results.csv"
     if is_main and not results_csv.exists():
         with open(results_csv, "w", newline="") as f:
@@ -471,6 +491,12 @@ def _fit(cfg: FitConfig, device: torch.device) -> dict:
                      f"{ev['mp']:.5f}", f"{ev['mr']:.5f}",
                      f"{ev['map50']:.5f}", f"{ev['map']:.5f}",
                      f"{best_fit:.5f}", f"{lr_now:.6f}", f"{dt:.1f}"])
+        loggers.log_scalars(
+            {"train/box_loss": means[0], "train/obj_loss": means[1],
+             "train/cls_loss": means[2], "train/loss": means[3],
+             "metrics/precision": ev["mp"], "metrics/recall": ev["mr"],
+             "metrics/mAP_0.5": ev["map50"],
+             "metrics/mAP_0.5:0.95": ev["map"], "x/lr": lr_now}, epoch)
         log(f"epoch {epoch}/{cfg.epochs - 1}: loss={means[3]:.4f} "
             f"mAP50={ev['map50']:.4f} best={best_fit:.4f} ({dt:.0f}s)")
 
@@ -487,6 +513,7 @@ def _fit(cfg: FitConfig, device: torch.device) -> dict:
                                       run_dir / "confusion_matrix.png")
         except Exception as e:
             log(f"final plots failed: {e}")
+    loggers.close()
     final.pop("cm", None)
     final["best_fitness"] = best_fit
     final["run_dir"] = str(run_dir)

@@ -9,7 +9,8 @@ table of that correspondence: a conv or dense ``weight`` is a flax
 ``running_mean``/``running_var`` are ``batch_stats`` ``mean``/``var``, and
 the rest keep their names. Layouts change as the JAX package's
 utils/torch_convert.py:177-185 changes them: conv kernels HWIO <-> OIHW,
-dense kernels (in, out) <-> (out, in). The same moves apply to any tensor
+dense kernels (in, out) <-> (out, in), 3-D kernels (C3TR's attention)
+unchanged. The same moves apply to any tensor
 shaped like a parameter (an optimizer's momentum, Adam's m and v).
 
 The optional ``quant`` collection (utils/quantize.py) sits on the modules
@@ -57,15 +58,21 @@ def flax_paths(model: nn.Module) -> Dict[str, FlaxPath]:
 
 
 def to_flax_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
-    """A port tensor's values in flax layout (kernels transposed)."""
-    if leaf == "kernel":
-        return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+    """A port tensor's values in flax layout (conv and dense kernels
+    transposed; the 3-D attention kernels of nn/layers.DenseGeneral are
+    held in flax's layout already)."""
+    if leaf == "kernel" and arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)
+    if leaf == "kernel" and arr.ndim == 2:
+        return arr.T
     return arr
 
 
 def from_flax_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
-    if leaf == "kernel":
-        return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    if leaf == "kernel" and arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    if leaf == "kernel" and arr.ndim == 2:
+        return arr.T
     return arr
 
 

@@ -41,6 +41,7 @@ from icafusion_tpu_torch.nn.fusion import QLinear
 from icafusion_tpu_torch.nn.layers import Conv
 from icafusion_tpu_torch.utils.convert import _set
 from icafusion_tpu_torch.utils.convert import quant_tree  # noqa: F401
+from icafusion_tpu_torch.utils.general import not_ported
 
 # the JAX package's version string: a .calib of another version is ignored
 QUANT_SCHEME_VERSION = "2-perchannel-fold"
@@ -262,8 +263,10 @@ def quantize_model(model, calib: dict, min_scale: float = 1e-8,
             raise ValueError("quantize_model reads float32 weights: quantize "
                              "the float32 model, then cast it")
         if m.conv.groups != 1:
-            raise ValueError(f"{name}: the int8 conv takes ungrouped convs "
-                             "only")
+            # the JAX package quantizes a grouped conv with a per-tensor
+            # input scale (its utils/quantize.py:263); the int8 kernel
+            # takes ungrouped convs only
+            not_ported(f"{name}: the int8 conv of a grouped conv", "A10")
         w = m.conv.weight.detach().cpu().numpy().transpose(2, 3, 1, 0)  # HWIO
         if w.shape[2] < min_ch or w.shape[3] < min_ch:
             continue

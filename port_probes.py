@@ -14,7 +14,7 @@ gated run does not make. Each subcommand needs a CUDA device.
     python3 port_probes.py fp64
 
         How far fp32 decoded predictions lie from float64: the seeded
-        ResNet50-Transfusion of phase 10a (chip_smoke.seeded_model, each
+        ResNet50-Transfusion of phase 10a (smoke/configs.seeded_model, each
         bottleneck's last BatchNorm scale at 1.0, build_model's, and at
         phase 10a's 0.3) on one seeded image pair at 640, batch 1, run in fp32 on the card and on the CPU through
         ServingEngine's model as phase 10a runs it, and in float64 on the
@@ -31,7 +31,7 @@ gated run does not make. Each subcommand needs a CUDA device.
     python3 port_probes.py int8-splits
 
         The int8 conv's tma path under every (groups, splits) choice that
-        fits shared memory, at the shape classes of chip_smoke.INT8_SHAPES
+        fits shared memory, at the shape classes of smoke/int8.INT8_SHAPES
         whose output tiles leave the card idle, at B = 1 and 4 in bf16:
         each choice's int32 accumulators against the plain version, then
         its time (queued_ms), beside the choice of kernels/conv_int8.py:
@@ -42,7 +42,7 @@ gated run does not make. Each subcommand needs a CUDA device.
         Where a tma block's time goes: a copy of csrc/conv_int8.cu with
         globaltimer stamps (block start, window quantized, first output
         tile's products done, products and epilogue done, split-K finish
-        pass entered) built beside build/, run at chip_smoke.INT8_SHAPES
+        pass entered) built beside build/, run at smoke/int8.INT8_SHAPES
         at B = 4 in bf16; prints the means over the blocks.
 
     python3 port_probes.py int8-forward
@@ -57,7 +57,7 @@ gated run does not make. Each subcommand needs a CUDA device.
     python3 port_probes.py dist-faults
 
         Whether chip_smoke.py's phase 12b can fail: its one process on the
-        global batch and its gates (chip_smoke.dist_reference), then its
+        global batch and its gates (smoke/parallel.dist_reference), then its
         two gloo ranks on cuda:0 three times, as they are and with a fault
         planted in both ranks at run time: the gradients averaged over the
         ranks where they must be summed, and BatchNorm's all-reduces
@@ -65,6 +65,14 @@ gated run does not make. Each subcommand needs a CUDA device.
         each run's losses, first-step gradients and state against the one
         process's, beside the gates, and whether the ranks' states are
         bit-equal.
+
+    python3 port_probes.py reference
+
+        chip_smoke.py's phase 13 alone (reference .pt weights, the legacy
+        modules, fit from a single-stream .pt), after the kernels' build
+        and phase 7a's cli.val of trained s640 from its .ckpt, whose
+        mAP@50 13a must repeat; the synthetic pairs of phase 6 are made
+        anew. Returns phase 13's launches.
 
 Each prints one JSON object as its last line.
 """
@@ -90,7 +98,7 @@ FP64_CFG, FP64_SIZE, FP64_SCALES = ("yolov5_ResNet50_Transfusion.yaml", 640,
 
 def attention(root: Path) -> dict:
     sys.path.insert(0, str(root))
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import common as cs
     from icafusion_tpu_torch.kernels.cross_attention import (
         dual_cross_attention, dual_cross_attention_reference)
     assert Path(dual_cross_attention.__code__.co_filename).is_relative_to(
@@ -149,7 +157,7 @@ def _rel_err(got, want) -> float:
 
 def fp64(cfg_name: str, imgsz: int, scales) -> dict:
     sys.path.insert(0, str(HERE))
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import configs as cs
     from icafusion_tpu_torch.config import load_model_config
     from icafusion_tpu_torch.serve.engine import ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,7 +227,7 @@ def fp64(cfg_name: str, imgsz: int, scales) -> dict:
 
 
 def _int8_classes(batches=(4, 1)):
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import int8 as cs
     for B in batches:
         for shape in cs.INT8_SHAPES:
             if shape[0] % 16 == 0:          # the stem takes the direct path
@@ -245,7 +253,7 @@ def _with_split(pl, Cin, Cout, k, s, groups, units):
 
 
 def int8_splits() -> dict:
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import int8 as cs
     from icafusion_tpu_torch.kernels import conv_int8 as ci
     gen = torch.Generator(device="cuda").manual_seed(0)
     out, losses = {}, []
@@ -290,7 +298,7 @@ def int8_splits() -> dict:
 
 def int8_phases() -> dict:
     import ctypes
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import int8 as cs
     from icafusion_tpu_torch.kernels import _build
     from icafusion_tpu_torch.kernels import conv_int8 as ci
     src = (HERE / "icafusion_tpu_torch" / "csrc" / "conv_int8.cu").read_text()
@@ -372,7 +380,7 @@ def int8_phases() -> dict:
 
 def int8_forward(card: str) -> dict:
     import re
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import int8 as cs
     from icafusion_tpu_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False    # as chip_smoke.py
     torch.backends.cudnn.allow_tf32 = False
@@ -396,7 +404,7 @@ DIST_FAULTS = (None, "gradients averaged", "BatchNorm local")
 
 def _fault_rank(ref_path: str, fault) -> dict:
     """One rank of chip_smoke.py's 12b fp32 steps with ``fault`` planted."""
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import parallel as cs
     if fault == "gradients averaged":
         from icafusion_tpu_torch.parallel.mesh import world
         from icafusion_tpu_torch.train.trainer import Trainer
@@ -416,7 +424,7 @@ def _fault_rank(ref_path: str, fault) -> dict:
 
 def dist_faults() -> dict:
     import tempfile
-    import chip_smoke as cs
+    from icafusion_tpu_torch.smoke import parallel as cs
     from icafusion_tpu_torch.parallel import mesh
     torch.backends.cuda.matmul.allow_tf32 = False    # as chip_smoke.py
     torch.backends.cudnn.allow_tf32 = False
@@ -443,6 +451,36 @@ def dist_faults() -> dict:
     return res
 
 
+def reference(card: str) -> dict:
+    import tempfile
+
+    from icafusion_tpu_torch.cli import val as cli_val
+    from icafusion_tpu_torch.data.synthetic import make_dataset
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.smoke.common import S640, S640_CFG
+    from icafusion_tpu_torch.smoke.reference import reference_slice
+    from icafusion_tpu_torch.smoke.val import VAL_BATCH
+    torch.backends.cuda.matmul.allow_tf32 = False    # as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        ext = S640 / "extval"
+        (work / "extval.yaml").write_text(
+            f"path: {ext}\nval_rgb: visible/val\nval_ir: infrared/val\n"
+            "nc: 3\nnames: ['red', 'green', 'blue']\n")
+        r = cli_val.main(["--weights", str(S640 / "stripped.ckpt"), "--cfg",
+                          S640_CFG, "--data", str(work / "extval.yaml"),
+                          "--img-size", "640", "--batch-size",
+                          str(VAL_BATCH), "--save-dir", str(work / "7a")])
+        print(f"   7a: cli.val s640 fp32 mAP@50 {r['map50']:.5f}")
+        data = make_dataset(work / "data", 48, np.random.default_rng(0),
+                            hw=(512, 640))
+        (work / "13").mkdir()
+        return reference_slice(card, r["map50"], data, work / "runs",
+                               work / "13")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -453,6 +491,7 @@ def main(argv=None) -> int:
     sub.add_parser("int8-phases")
     sub.add_parser("int8-forward")
     sub.add_parser("dist-faults")
+    sub.add_parser("reference")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("port_probes: no CUDA device", file=sys.stderr)
@@ -473,6 +512,8 @@ def main(argv=None) -> int:
         res = {"int8_forward": int8_forward(card)}
     elif args.cmd == "dist-faults":
         res = {"dist_faults": dist_faults()}
+    elif args.cmd == "reference":
+        res = {"reference": reference(card)}
     else:
         res = {"fp64": fp64(FP64_CFG, FP64_SIZE, FP64_SCALES)}
     res["card"] = card

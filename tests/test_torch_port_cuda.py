@@ -11,8 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-
 from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
 from icafusion_tpu_torch.kernels.cross_attention import (
     dual_cross_attention, dual_cross_attention_reference)
@@ -23,6 +21,10 @@ from icafusion_tpu_torch.models.assembler import build_model
 from icafusion_tpu_torch.nn.layers import Conv
 from icafusion_tpu_torch.models.zoo import tiny_icafusion_config
 from icafusion_tpu_torch.serve.engine import ServingEngine
+from icafusion_tpu_torch.smoke import common as smoke_common
+from icafusion_tpu_torch.smoke import int8 as smoke_int8
+from icafusion_tpu_torch.smoke import parallel as smoke_parallel
+from icafusion_tpu_torch.smoke import train as smoke_train
 
 pytestmark = pytest.mark.cuda
 
@@ -356,12 +358,12 @@ INT8_CARD_SHAPES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_conv_kernel_matches_reference(dev, shape, layout, dtype):
     """The int32 accumulators equal the plain version's and the outputs lie
-    within chip_smoke.INT8_TOL of the largest, with SiLU and identity."""
+    within smoke_int8.INT8_TOL of the largest, with SiLU and identity."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    args = chip_smoke.int8_case(2, shape, dtype, gen, layout)
+    args = smoke_int8.int8_case(2, shape, dtype, gen, layout)
     before = conv_int8_bn_act.launches
-    chip_smoke.int8_check(args)
-    chip_smoke.int8_check(args, act=False)
+    smoke_int8.int8_check(args)
+    smoke_int8.int8_check(args, act=False)
     assert conv_int8_bn_act.launches == before + 4
 
 
@@ -390,14 +392,14 @@ INT8_TMA_CASES = [
 def test_int8_tma_path_matches_reference(dev, case, dtype):
     """The tma path at split-K, ragged, stride-2 and narrow shapes: int32
     accumulators equal to the plain version's, outputs within
-    chip_smoke.INT8_TOL, with SiLU and identity."""
+    smoke_int8.INT8_TOL, with SiLU and identity."""
     from icafusion_tpu_torch.kernels.conv_int8 import plan_for
     B, shape = case
     gen = torch.Generator(device="cuda").manual_seed(sum(shape) + B)
-    args = chip_smoke.int8_case(B, shape, dtype, gen)
+    args = smoke_int8.int8_case(B, shape, dtype, gen)
     assert plan_for(args[0], args[1], args[5], args[6]).path == "tma"
-    chip_smoke.int8_check(args)
-    chip_smoke.int8_check(args, act=False)
+    smoke_int8.int8_check(args)
+    smoke_int8.int8_check(args, act=False)
 
 
 def test_int8_stem_and_nchw_take_the_direct_path(dev):
@@ -407,10 +409,10 @@ def test_int8_stem_and_nchw_take_the_direct_path(dev):
                           ((64, 64, 3, 1, 20, 20), torch.contiguous_format),
                           ((64, 128, 1, 1, 20, 20), torch.contiguous_format)):
         for dtype in (torch.float32, torch.bfloat16):
-            args = chip_smoke.int8_case(2, shape, dtype, gen, layout)
+            args = smoke_int8.int8_case(2, shape, dtype, gen, layout)
             assert plan_for(args[0], args[1], args[5],
                             args[6]).path == "direct"
-            chip_smoke.int8_check(args)
+            smoke_int8.int8_check(args)
 
 
 @pytest.mark.parametrize("offset", [16, 24])
@@ -421,7 +423,7 @@ def test_int8_channels_last_view_with_a_channel_offset(dev, offset):
     = 8 bytes is not)."""
     from icafusion_tpu_torch.kernels.conv_int8 import plan_for
     gen = torch.Generator(device="cuda").manual_seed(offset)
-    args = list(chip_smoke.int8_case(2, (64, 96, 3, 1, 20, 24),
+    args = list(smoke_int8.int8_case(2, (64, 96, 3, 1, 20, 24),
                                      torch.bfloat16, gen))
     full = torch.randn(2, 160, 20, 24, device="cuda", generator=gen).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -430,7 +432,7 @@ def test_int8_channels_last_view_with_a_channel_offset(dev, offset):
         args[0] = x
         args[2] = (x.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-8)
         assert plan_for(x, args[1], args[5], args[6]).path == path
-        chip_smoke.int8_check(tuple(args))
+        smoke_int8.int8_check(tuple(args))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -440,14 +442,14 @@ def test_int8_tma_path_takes_an_s_in_off_16_bytes(dev, dtype):
     stays on the tma path and gives the plain version's accumulators."""
     from icafusion_tpu_torch.kernels.conv_int8 import plan_for
     gen = torch.Generator(device="cuda").manual_seed(5)
-    args = list(chip_smoke.int8_case(2, (64, 96, 3, 1, 20, 24), dtype, gen))
+    args = list(smoke_int8.int8_case(2, (64, 96, 3, 1, 20, 24), dtype, gen))
     buf = torch.zeros(65, device="cuda")
     buf[1:] = args[2]
     args[2] = buf[1:]
     assert args[2].is_contiguous() and args[2].data_ptr() % 16 == 4
     assert plan_for(args[0], args[1], args[5], args[6]).path == "tma"
-    chip_smoke.int8_check(tuple(args))
-    chip_smoke.int8_check(tuple(args), act=False)
+    smoke_int8.int8_check(tuple(args))
+    smoke_int8.int8_check(tuple(args), act=False)
 
 
 def test_int8_split_k_counters_reset_between_calls(dev):
@@ -456,7 +458,7 @@ def test_int8_split_k_counters_reset_between_calls(dev):
     from icafusion_tpu_torch.kernels.conv_int8 import (
         conv_int8_bn_act, conv_int8_bn_act_reference, plan_for)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    args = chip_smoke.int8_case(1, (1024, 512, 1, 1, 20, 20),
+    args = smoke_int8.int8_case(1, (1024, 512, 1, 1, 20, 20),
                                 torch.bfloat16, gen)
     assert plan_for(args[0], args[1], args[5], args[6]).splits > 1
     outs = [conv_int8_bn_act(*args, epilogue=False) for _ in range(3)]
@@ -468,7 +470,7 @@ def test_int8_split_k_counters_reset_between_calls(dev):
 
 def test_int8_wrapper_rejects_what_the_kernel_does_not_take(dev):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x, w8, s_in, s_w, bn, s, p = chip_smoke.int8_case(
+    x, w8, s_in, s_w, bn, s, p = smoke_int8.int8_case(
         1, (16, 32, 3, 1, 8, 8), torch.float32, gen)
     with pytest.raises(TypeError):
         conv_int8_bn_act(x.half(), w8, s_in, s_w, bn, s, p)
@@ -513,7 +515,7 @@ def test_int8_model_launches_the_kernel_per_quantized_conv(dev):
 def test_pool_gradients_on_ties_are_first_winner(dev, fmt):
     """SPPF's 5x5/s1 pool and the fusion block's floor-mode pool (10x10/s2)
     on integer data: the card's autograd sends each window's gradient where
-    the JAX package's VJP does (chip_smoke.first_winner_pool_grad)."""
+    the JAX package's VJP does (smoke_common.first_winner_pool_grad)."""
     F = torch.nn.functional
     gen = torch.Generator().manual_seed(0)
     for shape, k, s, p in (((2, 8, 20, 20), 5, 1, 2),
@@ -524,14 +526,14 @@ def test_pool_gradients_on_ties_are_first_winner(dev, fmt):
         g = torch.randint(-3, 4, y.shape, generator=gen).float()
         (y * g.to(dev)).sum().backward()
         assert torch.equal(xc.grad.double().cpu(),
-                           chip_smoke.first_winner_pool_grad(x, g, k, s, p))
+                           smoke_common.first_winner_pool_grad(x, g, k, s, p))
 
 
 def test_train_steps_on_the_card_match_the_cpu(dev):
     """Three Trainer steps of the tiny model (64 px, batch 2, fp32, dropout
     off) on the card and on the CPU: chip_smoke.py's phase 6a, whose
     docstring and constants give the tolerances and why."""
-    chip_smoke.train_card_vs_cpu()
+    smoke_train.train_card_vs_cpu()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -561,7 +563,7 @@ def test_batcher_and_predict_paths_on_the_card_match_the_cpu(dev, tmp_path):
     pairs, and the MicroBatcher over six concurrent requests, on the card
     against the CPU engine. The decoded predictions agree to 1e-3 (the test
     above), so at least 90 % of each image's detections have a partner of
-    the same class at IoU > 0.5 both ways (chip_smoke.matched)."""
+    the same class at IoU > 0.5 both ways (smoke_common.matched)."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -599,8 +601,8 @@ def test_batcher_and_predict_paths_on_the_card_match_the_cpu(dev, tmp_path):
         assert mb.stats()["requests"] == 6
     assert sum(len(g) for g in got) > 0
     for g, w in zip(got, want):
-        assert chip_smoke.matched(g, w) >= 0.9
-        assert chip_smoke.matched(w, g) >= 0.9
+        assert smoke_common.matched(g, w) >= 0.9
+        assert smoke_common.matched(w, g) >= 0.9
 
 
 # ---- data parallel on the one card (parallel/mesh.py) ---------------------
@@ -608,13 +610,13 @@ def test_batcher_and_predict_paths_on_the_card_match_the_cpu(dev, tmp_path):
 
 def test_replica_engine_on_one_card_matches_one_replica(dev):
     """ServingEngine(n_devices=2) of yolov5l-Transfusion at 640 in bf16, both
-    replicas on cuda:0 (chip_smoke.two_replicas_on_one_card), one batch of
+    replicas on cuda:0 (smoke_parallel.two_replicas_on_one_card), one batch of
     4 against two one-replica batches of 2: the same detections (boxes
     within 1e-3 px), each kernel launched once per replica."""
     from icafusion_tpu_torch.models.zoo import icafusion_config
     model = build_model(icafusion_config("l", nc=3),
                         generator=torch.Generator().manual_seed(0))
-    with chip_smoke.two_replicas_on_one_card():
+    with smoke_parallel.two_replicas_on_one_card():
         two = ServingEngine(model, 640, 4, conf_thres=0.001, n_devices=2)
     one = ServingEngine(model, 640, 2, conf_thres=0.001)
     rng = np.random.default_rng(3)
@@ -672,3 +674,84 @@ def test_batchnorm_over_two_gloo_ranks_on_one_card(dev):
     np.testing.assert_array_equal(ranks[0]["var"], ranks[1]["var"])
     np.testing.assert_allclose(ranks[0]["var"], bn.running_var.cpu().numpy(),
                                rtol=1e-5)
+
+
+# ---- reference weights and the legacy modules (chip_smoke.py phase 13) ----
+
+
+def test_grouped_conv_launches_no_fused_conv(dev):
+    """A grouped 64 -> 64 3x3 Conv (depthwise, and g = 2) and a DWConv run
+    cuDNN on the card, never the fused 64-channel kernel, and equal the
+    CPU; the ungrouped one launches it once."""
+    from icafusion_tpu_torch.nn.layers import DWConv
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 20, 20, generator=gen)
+    for conv in (Conv(64, 64, 3, 1, g=64), Conv(64, 64, 3, 1, g=2),
+                 DWConv(64, 64, 3, 1), Conv(64, 64, 3, 1)):
+        conv.eval()
+        with torch.no_grad():
+            want = conv(x)
+            n = conv3x3_bn_silu.launches
+            got = conv.to(dev)(x.to(dev)).cpu()
+        assert conv3x3_bn_silu.launches - n == (conv.conv.groups == 1)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_pt_model_serves_as_the_weights_in_memory(dev, tmp_path):
+    """The tiny model written as an fp16 reference .pt (EMA first, zeros
+    under "model") and read by load_model_for_inference serves on the card
+    exactly as the fp16-rounded weights in memory, with one attention
+    launch per fusion block and one NMS a batch."""
+    from icafusion_tpu_torch.cli._common import load_model_for_inference
+    from icafusion_tpu_torch.smoke.reference import save_reference
+    from icafusion_tpu_torch.utils.torch_convert import reverse_convert
+    model = build_model(tiny_icafusion_config(),
+                        generator=torch.Generator().manual_seed(0))
+    pt = save_reference(reverse_convert(model), tmp_path / "tiny.pt",
+                        fp16=True, decoy=True)
+    _, from_pt = load_model_for_inference("zoo:tiny", str(pt))
+    with torch.no_grad():
+        for v in model.state_dict().values():
+            if v.is_floating_point():
+                v.copy_(v.half().float())
+    rng = np.random.default_rng(5)
+    rgb, ir = (rng.integers(0, 256, (4, 64, 96, 3), np.uint8)
+               for _ in range(2))
+    out = []
+    for m in (model, from_pt):
+        eng = ServingEngine(m, (64, 96), 4, conf_thres=0.01, dtype="bfloat16")
+        a0, n0 = dual_cross_attention.launches, greedy_nms.launches
+        out.append(eng.predict_arrays(rgb, ir))
+        assert (dual_cross_attention.launches - a0,
+                greedy_nms.launches - n0) == (3, 1)
+    assert sum(len(d) for d in out[0]) > 0
+    for a, b in zip(*out):
+        assert np.array_equal(a, b)
+
+
+def test_kitchen_sink_on_the_card_matches_the_cpu(dev):
+    """The graph of the 17 legacy YAML modules (smoke/reference.py) at 64 px
+    in fp32: decoded predictions on the card within 1e-3 of the CPU's, one
+    NMS launch a batch, no fused conv and no attention."""
+    from icafusion_tpu_torch.smoke.reference import kitchen_sink_config
+    model = build_model(kitchen_sink_config(),
+                        generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    rgb, ir = (rng.integers(0, 256, (2, 64, 64, 3), np.uint8)
+               for _ in range(2))
+    pred = {}
+    for d in (dev, "cpu"):
+        eng = ServingEngine(model, 64, 2, dtype="float32", device=d)
+        with torch.inference_mode():
+            x, y = (torch.from_numpy(a).to(eng.device).permute(0, 3, 1, 2)
+                    .float() / 255 for a in (rgb, ir))
+            pred[str(d)] = eng.model(x, y).cpu()
+        if d == dev:
+            before = (dual_cross_attention.launches, greedy_nms.launches,
+                      conv3x3_bn_silu.launches)
+            eng.predict_arrays(rgb, ir)
+            after = (dual_cross_attention.launches, greedy_nms.launches,
+                     conv3x3_bn_silu.launches)
+            assert tuple(b - a for a, b in zip(before, after)) == (0, 1, 0)
+    torch.testing.assert_close(pred[str(dev)], pred["cpu"], rtol=1e-3,
+                               atol=1e-3)

@@ -150,8 +150,7 @@ def test_fit_writes_the_reference_row(data_yaml, tmp_path, monkeypatch,
     # data parallel: no torchrun environment to join, no device
     ({"distributed": True}, ValueError, "RANK expected"),
     ({"n_devices": 0}, ValueError, "n_devices 0 < 1"),
-    ({"merge_streams": 2}, NotImplementedError, "A10"),
-    ({"pretrained": "yolov5l.pt"}, NotImplementedError, "A10")])
+    ({"merge_streams": 2}, NotImplementedError, "A10")])
 def test_unported_fit_options_raise(data_yaml, tmp_path, kw, err, match,
                                     monkeypatch):
     monkeypatch.delenv("RANK", raising=False)

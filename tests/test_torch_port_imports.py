@@ -1,6 +1,8 @@
-"""The port (icafusion_tpu_torch), chip_smoke.py and port_probes.py import
-no JAX, no flax and nothing of the JAX package, in a fresh interpreter;
-matplotlib only when a plot is drawn."""
+"""The port (icafusion_tpu_torch, the smoke run's phase bodies in
+icafusion_tpu_torch/smoke/ included), chip_smoke.py and port_probes.py
+import no JAX, no flax and nothing of the JAX package, in a fresh
+interpreter; matplotlib and tensorboard only when a plot or a writer is
+made."""
 
 import pathlib
 import subprocess
@@ -27,10 +29,16 @@ serve = ("cli.detect", "data.decode", "data.streams", "hub", "ops.nms",
 assert all("icafusion_tpu_torch." + t in names for t in serve), names
 assert "icafusion_tpu_torch.nn.backbones" in names, names
 assert "icafusion_tpu_torch.parallel.mesh" in names, names
+weights = ("utils.torch_convert", "utils.loggers")
+assert all("icafusion_tpu_torch." + t in names for t in weights), names
+smoke = ("common", "train", "val", "int8", "serve", "configs", "parallel",
+         "reference")
+assert all("icafusion_tpu_torch.smoke." + t in names for t in smoke), names
 import chip_smoke, port_probes
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "icafusion_tpu",
-                                    "matplotlib"))
+                                    "matplotlib", "tensorboard",
+                                    "tensorflow"))
 print(len(names), bad)
 """
 
@@ -41,7 +49,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
-    assert int(n) >= 59, out.stdout      # every module was walked
+    assert int(n) >= 70, out.stdout      # every module was walked
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

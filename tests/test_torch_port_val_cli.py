@@ -133,7 +133,8 @@ def test_zoo_specs_match_the_jax_cli(spec):
 
 
 def test_model_loading(setup):
-    """The zoo specs the port has, min sizes, and a .pt refused (A10)."""
+    """The zoo specs the port has, min sizes, and a missing reference .pt
+    raising FileNotFoundError."""
     mc, model = _common.load_model_for_inference("zoo:tiny", str(setup[1]))
     assert mc.nc == 3 and not model.training
     assert _common.resolve_model_config("zoo:tfb:s").width_multiple == 0.5
@@ -141,7 +142,7 @@ def test_model_loading(setup):
     assert _common.mc_min_size(mc) == 64
     assert _common.mc_min_size(_common.resolve_model_config("zoo:tfb:n")) \
         == 320
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(FileNotFoundError, match="yolov5l.pt"):
         _common.load_model_for_inference("zoo:tiny", "yolov5l.pt")
 
 
