@@ -139,13 +139,34 @@ exit code is non-zero and the final line is never printed:
    conv a batch, and a grouped 64 -> 64 3x3 Conv with no fused launch;
    (d) one epoch of fit on yolov5n-Transfusion at 320 from a
    single-stream .pt (model.0-9 of trained n320): the unused-key count and
-   whether a TensorBoard writer came up.
+   whether a TensorBoard writer came up;
+14. export (cli/export.py, smoke/export.py), files in a temp dir: (a) the
+   seeded yolov5l-Transfusion (phase 4b's weights) at 640, fp32, batch 1,
+   as ONNX, run by the port's numpy evaluator and held to the port's
+   forward on the card with cli.export --validate's gates, 3 attention
+   and 6 fused conv launches; (b) the same with --nms baked in, held to
+   non_max_suppression on the card (1 NMS launch) at a threshold where no
+   cap binds; (c) trained s640 calibrated on 16 extval pairs, exported as
+   int8 QDQ ONNX: its scores within 0.05 of the card's int8 forward and
+   of the fp32 graph, the int8 launches counted; (d) cli.export --include
+   pt2 of the flagship on the card: 3 icafusion::dual_cross_attention and
+   6 icafusion::conv3x3_bn_silu nodes, torch.export.load and a run within
+   1e-5 of the eager forward, with the kernels launched, then the same in
+   bf16 with its detections matched (printed); (e) Grad-CAM on trained
+   n320 at Detect's inputs and at layer 4 (through the attention's and
+   the fused conv's autograd paths), card against CPU within 1e-3; (f)
+   the kitchen-sink graph quantized (its depthwise Ghost convs on the
+   int8 conv's grouped direct path) and a depthwise 64 -> 64 3x3 Conv:
+   every grouped int8 conv's int32 accumulators equal the plain version's
+   at B = 1, 4 and 32, the grouped path timed beside cuDNN's bf16 grouped
+   conv; (g) an ensemble of two seeded yolov5n members on the card, its
+   candidates each member's own.
 
 The phase bodies live in icafusion_tpu_torch/smoke/ (one module a group
 of phases); this script keeps the order, the names and the summary lines.
 Before the last line it prints one JSON object with each kernel's launches
-on the main path (phases 4b, 8, 10a, 12 and 13a-13c; the int8 conv's in
-11b and 12d), error,
+on the main path (phases 4b, 8, 10a, 12, 13a-13c and 14; the int8 conv's
+in 11b, 12d and 14c/14f, and its grouped path's in 14f), error,
 device times (kernel, plain version and library yardstick, from
 torch.profiler) and bound; the
 last line is {"ok": true, "device": {...}}. Should the profiler record no
@@ -219,6 +240,7 @@ def main(argv=None) -> int:
         train_families_card_vs_cpu)
     from icafusion_tpu_torch.smoke.parallel import parallel_slice
     from icafusion_tpu_torch.smoke.reference import reference_slice
+    from icafusion_tpu_torch.smoke.export import export_slice
 
     t_all = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -595,6 +617,13 @@ def main(argv=None) -> int:
     train_tmp.cleanup()
     launches = {k: v + ref.get(k, 0) for k, v in launches.items()}
 
+    with tempfile.TemporaryDirectory() as tmp:
+        report["conv_int8_bn_act (grouped)"], exp = export_slice(card,
+                                                                 Path(tmp))
+    launches = {k: v + exp.get(k, 0) for k, v in launches.items()}
+    launches["conv_int8_bn_act (grouped)"] = exp["conv_int8_bn_act (grouped)"]
+    assert launches["conv_int8_bn_act (grouped)"] > 0, launches
+
     kernels = []
     for name, src, tpu in (
             ("dual_cross_attention",
@@ -606,6 +635,10 @@ def main(argv=None) -> int:
              "icafusion_tpu/kernels/packed_conv.py:120"),
             # no Pallas kernel: XLA's int8 conv of Conv._int8_conv
             ("conv_int8_bn_act", "icafusion_tpu_torch/csrc/conv_int8.cu",
+             "icafusion_tpu/nn/layers.py:172"),
+            # its direct path with groups (feature_group_count there)
+            ("conv_int8_bn_act (grouped)",
+             "icafusion_tpu_torch/csrc/conv_int8.cu",
              "icafusion_tpu/nn/layers.py:172")):
         r = report[name]
         kernels.append({

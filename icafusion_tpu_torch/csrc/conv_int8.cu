@@ -80,9 +80,13 @@
 //
 // "direct" (conv_int8_kernel), the first design, kept for the 3-channel stem
 // (K = 108: its channel rows are 6 bytes), NCHW and other strides,
-// Cin % 16 != 0 and Cout % 8 != 0: an implicit GEMM, M = B*Ho*Wo output
-// pixels, N = Cout, K = kh*kw*Cin in (ky, kx, ci) order (w8's own order,
-// so B rows are w8's rows). A block computes a 64-pixel x 128-channel tile
+// Cin % 16 != 0, Cout % 8 != 0 and grouped convs: an implicit GEMM, M =
+// B*Ho*Wo output pixels, N = Cout, K = kh*kw*Cin_g in (ky, kx, ci) order
+// (w8's own order, so B rows are w8's rows). With g groups, Cin_g = Cin / g
+// and output channel co reads input channels [(co / Cout_g) * Cin_g, ... +
+// Cin_g), Cout_g = Cout / g: a block's 128 output channels lie in one group
+// (blockIdx.y counts ceil(Cout_g / 128) tiles a group), so a depthwise conv
+// uses one of its 128 columns. Simple and exact, not fast. A block computes a 64-pixel x 128-channel tile
 // with 8 warps (2 x 4, 32 x 32 each: 2 x 4 m16n8k32 tiles), stepping K by
 // 64 bytes through two shared-memory buffers: the global loads of step k+1
 // are issued before the products of step k and stored (A quantized on the
@@ -127,6 +131,7 @@ struct Params {
   void* out;                     // (B, Ho, Wo, Cout): channels_last
   int Cin, H, W, Cout, kw, stride_h, stride_w, pad_h, pad_w, Ho, Wo;
   int M, K;
+  int Cin_g, Cout_g, n_tiles_g;  // channels a group in and out, tiles a group
   int act;                       // 1: SiLU, 0: identity
 };
 
@@ -180,7 +185,11 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float col_mult[kBN], col_add[kBN];
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int grp = blockIdx.y / p.n_tiles_g;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = grp * p.Cout_g + (blockIdx.y % p.n_tiles_g) * kBN;
+  const int n_end = min(p.Cout, (grp + 1) * p.Cout_g);  // the group's end
+  const int ci0 = grp * p.Cin_g;                         // its first input
   if (tid < kBM) {
     const int m = m0 + tid;
     if (m < p.M) {
@@ -199,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
   if (kEpilogue && tid < kBN) {
     const int n = n0 + tid;
     float mult = 0.f, add = 0.f;
-    if (n < p.Cout) {
+    if (n < n_end) {
       const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(p.var[n], p.eps)));
       const float g = __fmul_rn(p.gamma[n], inv);
       mult = __fmul_rn(p.s_w[n], g);
@@ -222,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
   auto load = [&](int kt) {
     const int k = kt * kBK + a_col;
     if (k < p.K) {
-      const int ci = k % p.Cin, tap = k / p.Cin;
+      const int ci = ci0 + k % p.Cin_g, tap = k / p.Cin_g;
       const int kx = tap % p.kw, ky = tap / p.kw;
       const long long col_off = ci * p.sc + ky * p.sh + kx * p.sw;
       a_scale = p.s_in[ci];
@@ -247,12 +256,12 @@ __global__ void __launch_bounds__(kThreads)
       const int k0 = kt * kBK + (chunk % (kBK / 16)) * 16;
       const int8_t* row = p.w8 + static_cast<long long>(n) * p.K;
       if (b_vec) {
-        b_val[j] = (n < p.Cout && k0 < p.K)
+        b_val[j] = (n < n_end && k0 < p.K)
                        ? *reinterpret_cast<const uint4*>(row + k0)
                        : make_uint4(0, 0, 0, 0);
       } else {
         uint32_t v[4] = {0, 0, 0, 0};
-        if (n < p.Cout) {
+        if (n < n_end) {
 #pragma unroll
           for (int e = 0; e < 16; ++e) {
             const int k = k0 + e;
@@ -329,7 +338,7 @@ __global__ void __launch_bounds__(kThreads)
         const int row = wm + i * 16 + g + (r >= 2 ? 8 : 0);
         const int col = wn + j * 8 + (lane & 3) * 2 + (r & 1);
         const int m = m0 + row, n = n0 + col;
-        if (m >= p.M || n >= p.Cout) continue;
+        if (m >= p.M || n >= n_end) continue;
         const long long o = static_cast<long long>(m) * p.Cout + n;
         if (kEpilogue) {
           float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][r]),
@@ -345,7 +354,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 cudaError_t launch(const Params& p, int epilogue, cudaStream_t st) {
-  const dim3 grid((p.M + kBM - 1) / kBM, (p.Cout + kBN - 1) / kBN);
+  const dim3 grid((p.M + kBM - 1) / kBM,
+                  (p.Cout / p.Cout_g) * p.n_tiles_g);
   if (epilogue)
     conv_int8_kernel<T, true><<<grid, kThreads, 0, st>>>(p);
   else
@@ -812,10 +822,11 @@ cudaError_t launch_epi(const CUtensorMap& wmap, const Params& p, int grid,
 
 }  // namespace
 
-// x with element strides (sb, sc, sh, sw); w8 (Cout, kh, kw, Cin) int8;
-// s_in (Cin,), s_w and the BatchNorm's gamma, beta, mean, var (Cout,)
+// x with element strides (sb, sc, sh, sw); w8 (Cout, kh, kw, Cin / groups)
+// int8; s_in (Cin,), s_w and the BatchNorm's gamma, beta, mean, var (Cout,)
 // float32; out (B, Ho, Wo, Cout) dense: x's dtype, or int32 when
-// epilogue = 0. kh is implied by K = kh*kw*Cin (the rows of w8).
+// epilogue = 0. kh is implied by K = kh*kw*Cin/groups (the rows of w8).
+// groups divides Cin and Cout.
 extern "C" int icaf_conv_int8(const void* x, long long sb, long long sc,
                               long long sh, long long sw, const void* w8,
                               const void* s_in, const void* s_w,
@@ -825,7 +836,8 @@ extern "C" int icaf_conv_int8(const void* x, long long sb, long long sc,
                               int Cout, int kh, int kw, int stride_h,
                               int stride_w, int pad_h, int pad_w, int Ho,
                               int Wo, int is_bf16, int act, int epilogue,
-                              void* stream) {
+                              int groups, void* stream) {
+  if (groups < 1 || Cin % groups || Cout % groups) return cudaErrorInvalidValue;
   Params p;
   p.x = x;
   p.sb = sb;
@@ -853,7 +865,10 @@ extern "C" int icaf_conv_int8(const void* x, long long sb, long long sc,
   p.Ho = Ho;
   p.Wo = Wo;
   p.M = B * Ho * Wo;
-  p.K = kh * kw * Cin;
+  p.Cin_g = Cin / groups;
+  p.Cout_g = Cout / groups;
+  p.n_tiles_g = (p.Cout_g + kBN - 1) / kBN;
+  p.K = kh * kw * p.Cin_g;
   p.act = act;
   if (p.M == 0 || Cout == 0) return cudaSuccess;
   auto st = static_cast<cudaStream_t>(stream);

@@ -55,11 +55,11 @@ SIGNATURES = {
                              _P),
     # x, its strides (b, c, h, w), w8, s_in, s_w, gamma, beta, mean, var,
     # eps, out, B, Cin, H, W, Cout, kh, kw, stride_h, stride_w, pad_h,
-    # pad_w, Ho, Wo, is_bf16, act, epilogue, stream
+    # pad_w, Ho, Wo, is_bf16, act, epilogue, groups, stream
     "icaf_conv_int8": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                       ctypes.c_float, _P, *(_I,) * 16, _P),
+                       ctypes.c_float, _P, *(_I,) * 17, _P),
     # the same up to out, then the split-K scratch ws and counters (null
-    # without a split), the 16 ints of icaf_conv_int8, and the plan: th,
+    # without a split), the first 16 ints of icaf_conv_int8, and the plan: th,
     # tw, groups, splits, slice_units, chunks, b_stages and its layout
     # (copy_bytes, off_q, off_ep, off_bar, smem); stream
     "icaf_conv_int8_tma": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,

@@ -15,9 +15,10 @@ paths that ``plan`` chooses between:
   shared memory and multiplies it with s8 ``wgmma`` against weight tiles
   that stream through a TMA ring; Cout and K are spread over more blocks
   where the output tiles alone leave the card idle (``plan``).
-- ``"direct"``: everything else (the 3-channel stem, NCHW and other
-  strides): an implicit GEMM on ``mma.sync`` m16n8k32 tiles that quantizes
-  x in its operand load.
+- ``"direct"``: everything else (the 3-channel stem, NCHW, other strides
+  and grouped convs): an implicit GEMM on ``mma.sync`` m16n8k32 tiles that
+  quantizes x in its operand load; a block's output channels lie in one
+  group.
 
 ``conv_int8_bn_act`` launches the kernel on CUDA tensors and runs
 ``conv_int8_bn_act_reference``, the plain PyTorch version, on CPU tensors
@@ -31,7 +32,13 @@ only. Both compute
 with the arithmetic of the epilogue in that order, rounded once to x's
 dtype; ``epilogue=False`` returns ``acc`` itself. x is (B, Cin, H, W) in
 any strides (channels_last on the serving path); the output is
-channels_last.
+channels_last. With ``groups`` g, output channel co reads the input
+channels of its group, [(co // (Cout / g)) * Cin / g, ... + Cin / g).
+
+The conv has no gradient: on either device ``conv_int8_bn_act`` raises
+where grad is enabled and an input requires it (JAX's ``round`` gives
+zero gradients silently). While ``torch.export`` traces, the call is the
+custom operator ``icafusion::conv_int8_bn_act`` (kernels/ops.py).
 """
 
 from __future__ import annotations
@@ -69,12 +76,13 @@ def fold_epilogue(s_w: torch.Tensor, bn: BN):
 
 def conv_int8_bn_act_reference(x, w8, s_in, s_w, bn: BN, stride=1,
                                padding=0, act: bool = True,
-                               epilogue: bool = True):
+                               epilogue: bool = True, groups: int = 1):
     """The plain version: quantize, convolve the int8 values in float64
     (exact: |acc| < 2^53), cast to int32, then the fp32 epilogue."""
     x8 = quantize_input(x, s_in).double()
     w = w8.permute(0, 3, 1, 2).double()
-    acc = F.conv2d(x8, w, stride=_pair(stride), padding=_pair(padding))
+    acc = F.conv2d(x8, w, stride=_pair(stride), padding=_pair(padding),
+                   groups=groups)
     acc = acc.to(torch.int32).contiguous(memory_format=torch.channels_last)
     if not epilogue:
         return acc
@@ -218,10 +226,11 @@ def _ring(geometry: tuple, chunks: int, n_per_group: int,
 def plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int,
          stride=1, padding=0, dtype=torch.bfloat16,
          strides: Optional[Tuple[int, int, int, int]] = None,
-         aligned: bool = True) -> Plan:
+         aligned: bool = True, conv_groups: int = 1) -> Plan:
     """The launch plan of one conv: x (B, Cin, H, W) of ``dtype`` with
     element ``strides`` (b, c, h, w; channels_last when None) and a
-    16-byte aligned start (``aligned``), w8 (Cout, kh, kw, Cin).
+    16-byte aligned start (``aligned``), w8 (Cout, kh, kw, Cin /
+    conv_groups). A grouped conv takes the direct path.
 
     Split-K (see SPLIT_*): the block's 128-channel output tiles may be
     spread over ``groups`` blocks (each quantizes the same window) and Cin
@@ -233,6 +242,8 @@ def plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int,
     if strides is None:
         strides = (H * W * Cin, 1, W * Cin, Cin)
     direct = lambda why: Plan("direct", why)
+    if conv_groups != 1:
+        return direct("grouped")
     if dtype not in (torch.float32, torch.bfloat16):
         return direct(f"dtype {dtype}")
     esz = 2 if dtype == torch.bfloat16 else 4
@@ -290,11 +301,14 @@ def plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int,
                 grid=tiles * groups * splits, layout=lay)
 
 
-def plan_for(x: torch.Tensor, w8: torch.Tensor, stride=1, padding=0) -> Plan:
-    """``plan`` of ``conv_int8_bn_act(x, w8, ..., stride, padding)``."""
-    Cout, kh, kw, Cin = w8.shape
-    return plan(x.shape[0], Cin, *x.shape[2:], Cout, kh, kw, stride,
-                padding, x.dtype, tuple(x.stride()), x.data_ptr() % 16 == 0)
+def plan_for(x: torch.Tensor, w8: torch.Tensor, stride=1, padding=0,
+             groups: int = 1) -> Plan:
+    """``plan`` of ``conv_int8_bn_act(x, w8, ..., stride, padding,
+    groups=groups)`` (``groups``: the conv's)."""
+    Cout, kh, kw, _ = w8.shape
+    return plan(x.shape[0], x.shape[1], *x.shape[2:], Cout, kh, kw, stride,
+                padding, x.dtype, tuple(x.stride()), x.data_ptr() % 16 == 0,
+                groups)
 
 
 # Split-K tile counters, by (device, stream): zeroed once, and every launch
@@ -312,27 +326,44 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def conv_int8_bn_act(x, w8, s_in, s_w, bn: BN, stride=1, padding=0,
-                     act: bool = True, epilogue: bool = True):
+                     act: bool = True, epilogue: bool = True,
+                     groups: int = 1):
     """x: (B, Cin, H, W) float32 or bfloat16, any strides; w8: (Cout, kh,
-    kw, Cin) int8, contiguous; s_in: (Cin,) or () float32; s_w: (Cout,)
-    float32; bn: (gamma, beta, running_mean, running_var, eps) of the
-    BatchNorm, float32 (Cout,) each (None without the epilogue). Returns
-    act(BN(conv(x8, w8) * s_w)) in x's dtype, channels_last, or with
-    epilogue=False the int32 accumulators. Ungrouped convs only. ``plan``
-    picks the kernel's path."""
+    kw, Cin / groups) int8, contiguous; s_in: (Cin,) or () float32; s_w:
+    (Cout,) float32; bn: (gamma, beta, running_mean, running_var, eps) of
+    the BatchNorm, float32 (Cout,) each (None without the epilogue).
+    Returns act(BN(conv(x8, w8) * s_w)) in x's dtype, channels_last, or
+    with epilogue=False the int32 accumulators. ``plan`` picks the
+    kernel's path."""
+    if torch.compiler.is_exporting():
+        from icafusion_tpu_torch.kernels import ops
+        return ops.conv_int8_bn_act(x, w8, s_in, s_w, bn, stride, padding,
+                                    act, epilogue, groups)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, s_in, s_w, *(bn or ())[:4])):
+        raise RuntimeError("conv_int8_bn_act has no gradient: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
     if x.device.type == "cpu":
         return conv_int8_bn_act_reference(x, w8, s_in, s_w, bn, stride,
-                                          padding, act, epilogue)
+                                          padding, act, epilogue, groups)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return launch(x, w8, s_in, s_w, bn, stride, padding, act, epilogue,
+                  groups)
+
+
+def launch(x, w8, s_in, s_w, bn: BN, stride, padding, act: bool,
+           epilogue: bool, groups: int):
+    """Check the arguments, plan and launch on CUDA tensors, count it."""
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:
         raise TypeError(f"conv_int8_bn_act: x {tuple(x.shape)} {x.dtype}, "
                         "want (B, Cin, H, W) float32 or bfloat16")
     B, Cin, H, W = x.shape
-    if w8.dtype != torch.int8 or w8.dim() != 4 or w8.shape[3] != Cin:
+    if (groups < 1 or w8.dtype != torch.int8 or w8.dim() != 4
+            or w8.shape[3] * groups != Cin or w8.shape[0] % groups):
         raise ValueError(f"conv_int8_bn_act: w8 {tuple(w8.shape)} "
-                         f"{w8.dtype}, want (Cout, kh, kw, {Cin}) int8 "
-                         "(grouped convs are not supported)")
+                         f"{w8.dtype}, want (Cout, kh, kw, {Cin} / {groups}) "
+                         f"int8, Cout a multiple of {groups}")
     Cout, kh, kw, _ = w8.shape
     if s_in.dim() == 0:
         s_in = s_in.expand(Cin).contiguous()
@@ -355,14 +386,16 @@ def conv_int8_bn_act(x, w8, s_in, s_w, bn: BN, stride=1, padding=0,
         raise ValueError(f"conv_int8_bn_act: empty output for {(H, W)}, "
                          f"kernel {(kh, kw)}, padding {(ph, pw)}")
     pl = plan(B, Cin, H, W, Cout, kh, kw, (sh, sw), (ph, pw), x.dtype,
-              x.stride(), x.data_ptr() % 16 == 0)
-    out = _launch(x, w8, s_in, s_w, bn, stride, padding, act, epilogue, pl)
+              x.stride(), x.data_ptr() % 16 == 0, groups)
+    out = _launch(x, w8, s_in, s_w, bn, stride, padding, act, epilogue, pl,
+                  groups)
     conv_int8_bn_act.launches += 1
+    conv_int8_bn_act.grouped_launches += groups > 1
     return out
 
 
 def _launch(x, w8, s_in, s_w, bn: BN, stride, padding, act: bool,
-            epilogue: bool, pl: Plan) -> torch.Tensor:
+            epilogue: bool, pl: Plan, groups: int = 1) -> torch.Tensor:
     """Launch plan ``pl`` on arguments that conv_int8_bn_act has checked
     (s_in (Cin,), bn a full tuple)."""
     B, Cin, H, W = x.shape
@@ -398,9 +431,11 @@ def _launch(x, w8, s_in, s_w, bn: BN, stride, padding, act: bool,
                 _build.stream_handle(x.device))
         else:
             err = lib.icaf_conv_int8(x.data_ptr(), *x.stride(), *common,
-                                     *shape, _build.stream_handle(x.device))
+                                     *shape, groups,
+                                     _build.stream_handle(x.device))
     _build.check(err, f"conv_int8_bn_act ({pl.path})")
     return out
 
 
 conv_int8_bn_act.launches = 0
+conv_int8_bn_act.grouped_launches = 0     # of them, grouped convs

@@ -16,6 +16,14 @@ mma.sync tensor cores; in fp32: CUDA cores, no TF32) and runs
 ``dual_cross_attention_reference``, the plain PyTorch version, on CPU
 tensors only.
 
+Where grad is enabled and a tensor argument requires it, the CUDA call goes
+through ``DualCrossAttention`` (torch.autograd.Function): its forward
+launches the kernel and its backward is the vjp of the plain version,
+recomputed on the saved inputs (the JAX kernel has no backward kernel of
+its own). While ``torch.export`` traces, the call is the custom operator
+``icafusion::dual_cross_attention`` (kernels/ops.py), whose CUDA
+implementation launches the same kernel.
+
 Weights are in torch Linear layout (out, in); biases are (D,).
 """
 
@@ -28,6 +36,7 @@ from typing import Sequence
 import torch
 
 from icafusion_tpu_torch.kernels import _build
+from icafusion_tpu_torch.kernels._vjp import plain_vjp
 
 NAMES = ("q_vis", "k_vis", "v_vis", "q_ir", "k_ir", "v_ir")
 MAX_DK = 256          # the widest head the kernel is built for
@@ -98,11 +107,25 @@ def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
     On CUDA: float32 or bfloat16 tokens, float32 accumulation and softmax,
     output in the token dtype; bfloat16 rounds q/k/v and the probabilities
     to bfloat16 before their products, as the plain version does."""
+    if torch.compiler.is_exporting():
+        from icafusion_tpu_torch.kernels import ops
+        return ops.dual_cross_attention(vis, ir, list(weights), list(biases),
+                                        num_heads)
     if vis.device.type == "cpu":
         return dual_cross_attention_reference(vis, ir, weights, biases,
                                               num_heads)
     if vis.device.type != "cuda":
         raise ValueError(f"unsupported device {vis.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (vis, ir, *weights, *biases)):
+        return DualCrossAttention.apply(vis, ir, num_heads, *weights,
+                                        *biases)
+    return launch(vis, ir, weights, biases, num_heads)
+
+
+def launch(vis, ir, weights: Sequence[torch.Tensor],
+           biases: Sequence[torch.Tensor], num_heads: int):
+    """Check the arguments, launch the kernel on CUDA tensors, count it."""
     B, N, D = vis.shape
     dt = vis.dtype
     dkp = check_args(D, num_heads, dt)
@@ -145,3 +168,23 @@ def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
 
 
 dual_cross_attention.launches = 0
+
+
+class DualCrossAttention(torch.autograd.Function):
+    """The kernel forward with the plain version's vjp as its backward:
+    gradients for the tokens, the six weights and the six biases."""
+
+    @staticmethod
+    def forward(ctx, vis, ir, num_heads: int, *params):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(vis, ir, *params)
+        return launch(vis, ir, params[:6], params[6:], num_heads)
+
+    @staticmethod
+    def backward(ctx, g_vis, g_ir):
+        need = ctx.needs_input_grad
+        grads = plain_vjp(
+            lambda vis, ir, *p: dual_cross_attention_reference(
+                vis, ir, p[:6], p[6:], ctx.num_heads),
+            ctx.saved_tensors, need[:2] + need[3:], (g_vis, g_ir))
+        return (*grads[:2], None, *grads[2:])

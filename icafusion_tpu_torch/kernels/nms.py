@@ -21,6 +21,11 @@ The walk relies on the contract of the JAX kernel and of
 finite and non-increasing along K. Under it, keep and ok equal the plain
 loop's index for index, for any K >= 1 and max_det >= 1. On unsorted scores
 the kernels do not reproduce the argmax loop.
+
+Suppression has no gradient: on either device ``greedy_nms`` raises where
+grad is enabled and an input requires it (JAX's argmax loop gives zero
+gradients silently). While ``torch.export`` traces, the call is the custom
+operator ``icafusion::greedy_nms`` (kernels/ops.py).
 """
 
 from __future__ import annotations
@@ -69,10 +74,23 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
     non-increasing along K, padding <= 0. Returns (keep (B, max_det) int32,
     ok (B, max_det) bool). One call counts one launch, though the card runs
     two kernels."""
+    if torch.compiler.is_exporting():
+        from icafusion_tpu_torch.kernels import ops
+        return ops.greedy_nms(boxes, scores, iou_thres, max_det)
+    if torch.is_grad_enabled() and (boxes.requires_grad
+                                    or scores.requires_grad):
+        raise RuntimeError("greedy_nms has no gradient: call it under "
+                           "torch.no_grad() or on detached tensors")
     if boxes.device.type == "cpu":
         return greedy_nms_reference(boxes, scores, iou_thres, max_det)
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
+    return launch(boxes, scores, iou_thres, max_det)
+
+
+def launch(boxes, scores, iou_thres: float, max_det: int):
+    """Check the arguments, launch the kernels on CUDA tensors, count one
+    launch."""
     B, K, four = boxes.shape
     if four != 4 or scores.shape != (B, K):
         raise ValueError(f"greedy_nms: boxes {tuple(boxes.shape)}, scores "

@@ -15,6 +15,13 @@ only. x is (B, 64, H, W), any H, W >= 1, dense in NCHW or in channels_last
 (NHWC) memory; the output has x's layout. The serving path's activations are
 channels_last, because the engine permutes its (n, H, W, 3) uint8 input, so
 the kernel reads that layout as it is instead of copying it.
+
+Where grad is enabled and an argument requires it, the CUDA call goes
+through ``Conv3x3BnSilu`` (torch.autograd.Function): the kernel forward,
+and the plain version's vjp recomputed on the saved inputs as its backward
+(gradients for x, w, scale and bias). While ``torch.export`` traces, the
+call is the custom operator ``icafusion::conv3x3_bn_silu``
+(kernels/ops.py).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from icafusion_tpu_torch.kernels import _build
+from icafusion_tpu_torch.kernels._vjp import plain_vjp
 
 C = 64   # channels in and out
 
@@ -41,10 +49,21 @@ def conv3x3_bn_silu(x, w, scale, bias):
     (64,) float32, the folded eval-mode BatchNorm. Returns
     SiLU(conv3x3(x, w, padding=1) * scale + bias) in x's dtype and memory
     layout, accumulated in float32."""
+    if torch.compiler.is_exporting():
+        from icafusion_tpu_torch.kernels import ops
+        return ops.conv3x3_bn_silu(x, w, scale, bias)
     if x.device.type == "cpu":
         return conv3x3_bn_silu_reference(x, w, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, scale, bias)):
+        return Conv3x3BnSilu.apply(x, w, scale, bias)
+    return launch(x, w, scale, bias)
+
+
+def launch(x, w, scale, bias):
+    """Check the arguments, launch the kernel on CUDA tensors, count it."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3_bn_silu: dtype {x.dtype} not supported")
     if x.dim() != 4 or x.shape[1] != C:
@@ -88,3 +107,17 @@ def conv3x3_bn_silu(x, w, scale, bias):
 
 
 conv3x3_bn_silu.launches = 0
+
+
+class Conv3x3BnSilu(torch.autograd.Function):
+    """The kernel forward with the plain version's vjp as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        ctx.save_for_backward(x, w, scale, bias)
+        return launch(x, w, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(plain_vjp(conv3x3_bn_silu_reference, ctx.saved_tensors,
+                               ctx.needs_input_grad, (g,)))

@@ -222,10 +222,18 @@ class ICAFusionModel(nn.Module):
                 p.data = p.data.to(dtype)
         return self
 
-    def forward(self, x, x2=None, raw: bool = False):
-        """raw (eval mode): return (decoded predictions, Detect's raw maps
-        per level), for a loss on the same forward."""
+    def forward(self, x, x2=None, raw: bool = False, logits: bool = False,
+                capture: Tuple[int, ...] = (),
+                overrides: Optional[Dict[int, Any]] = None):
+        """raw (eval mode): also Detect's raw maps per level, for a loss on
+        the same forward; logits (eval mode): also its raw class logits
+        (B, N, nc), as Detect.forward orders them. overrides {layer index:
+        activation} replaces a layer's output (Grad-CAM re-enters there);
+        capture lists layer indices whose outputs to return as well: the
+        result is then (outputs, {index: activation}), as in the JAX
+        package's ICAFusionModel (models/assembler.py:255-276)."""
         y: Dict[int, Any] = {}
+        captured: Dict[int, Any] = {}
         out = x
         x2 = x if x2 is None else x2
         last = self.resolved[-1].i
@@ -239,10 +247,15 @@ class ICAFusionModel(nn.Module):
             else:
                 inp = [out if j == -1 else y[j] for j in r.f]
             m = getattr(self, f"m{r.i}")
-            out = m(inp, raw=True) if raw and r.i == last else m(inp)
+            out = (m(inp, raw=raw, logits=logits)
+                   if (raw or logits) and r.i == last else m(inp))
+            if overrides and r.i in overrides:
+                out = overrides[r.i]
+            if r.i in capture:
+                captured[r.i] = out
             if r.i in self.save:
                 y[r.i] = out
-        return out
+        return (out, captured) if capture else out
 
 
 def detect_layer(cfg: ModelConfig) -> ResolvedLayer:

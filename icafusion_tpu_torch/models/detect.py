@@ -57,12 +57,15 @@ class Detect(nn.Module):
         for i, c in enumerate(ch):
             self.add_module(f"m{i}", nn.Conv2d(c, self.no * self.na, 1))
 
-    def forward(self, xs: List[torch.Tensor], raw: bool = False):
+    def forward(self, xs: List[torch.Tensor], raw: bool = False,
+                logits: bool = False):
         """Eval mode: decoded predictions (B, sum ny*nx*na, 5 + nc), float32:
-        xywh in input pixels, objectness, class scores; with raw, the pair
-        (decoded, raw maps), as the JAX ``decode=True`` returns both. Train
-        mode: the raw maps per level, (B, ny, nx, na, 5 + nc) in the
-        activation dtype."""
+        xywh in input pixels, objectness, class scores; with logits, also
+        the raw class logits (B, sum ny*nx*na, nc) in float32 (the JAX
+        head's second output, models/detect.py:106, for Grad-CAM and
+        ensembles); with raw, also the raw maps, as the JAX ``decode=True``
+        returns them: (decoded[, logits][, maps]). Train mode: the raw maps
+        per level, (B, ny, nx, na, 5 + nc) in the activation dtype."""
         maps = []
         for i, x in enumerate(xs):
             t = getattr(self, f"m{i}")(x)
@@ -86,4 +89,11 @@ class Detect(nn.Module):
             out = torch.cat([xy, wh, y[..., 4:]], dim=-1)
             z.append(out.reshape(b, ny * nx * self.na, self.no))
         pred = torch.cat(z, dim=1)
-        return (pred, maps) if raw else pred
+        if not (raw or logits):
+            return pred
+        out = (pred,)
+        if logits:
+            out += (torch.cat([m.float()[..., 5:].reshape(m.shape[0], -1,
+                                                         self.nc)
+                               for m in maps], dim=1),)
+        return out + (maps,) if raw else out

@@ -68,14 +68,22 @@ def adaptive_pool2d(x, out_h: int, out_w: int, pool_type: str = "avg"):
     return pool(x, (out_h, out_w))
 
 
-@functools.lru_cache(maxsize=64)
 def _linear_resize_matrix(n_in: int, n_out: int, device: torch.device,
                           dtype: torch.dtype) -> torch.Tensor:
     """(n_out, n_in) weights of jax.image.resize(method="linear") along one
     axis: half-pixel centres, a triangle kernel widened by in/out when
     downsampling (antialias), rows normalised to sum 1. Upsampling gives
     exactly bilinear interpolation with align_corners=False. Cached on the
-    device, so a forward copies nothing from the host."""
+    device, so a forward copies nothing from the host; made afresh while
+    torch.export traces (the trace's tensors must not reach the cache)."""
+    if torch.compiler.is_exporting():
+        return _cached_resize_matrix.__wrapped__(n_in, n_out, device, dtype)
+    return _cached_resize_matrix(n_in, n_out, device, dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_resize_matrix(n_in: int, n_out: int, device: torch.device,
+                          dtype: torch.dtype) -> torch.Tensor:
     scale = np.float32(n_out) / np.float32(n_in)
     inv = np.float32(1.0) / scale
     kernel_scale = max(inv, np.float32(1.0))
@@ -87,8 +95,11 @@ def _linear_resize_matrix(n_in: int, n_out: int, device: torch.device,
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1), 0)
     w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0)
-    return torch.from_numpy(np.ascontiguousarray(w.T, dtype=np.float32)).to(
-        device, dtype)
+    # a normal tensor even when first asked for under inference_mode, so
+    # that a later forward with autograd (Grad-CAM) can use the cached one
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(
+            w.T, dtype=np.float32)).to(device, dtype)
 
 
 def resize_linear(x, out_h: int, out_w: int):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from icafusion_tpu_torch.kernels import ops  # noqa: F401  (icafusion::*)
 from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
 from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
 from icafusion_tpu_torch.parallel.mesh import all_reduce_sum, world
@@ -101,8 +102,8 @@ class Conv(nn.Module):
     ``quantize_model`` has filled the buffers ``w8`` (Cout, kh, kw, Cin)
     int8, ``s_w`` (Cout,) and ``s_in`` (Cin,) float32, an eval-mode forward
     runs kernels/conv_int8.py: conv_int8_bn_act (quantize x, int8 conv,
-    dequantize, BatchNorm, activation) before any other branch; a train-mode
-    forward never quantizes. The buffers are None until then, so an
+    dequantize, BatchNorm, activation) before any other branch, grouped
+    convs too; a train-mode forward never quantizes. The buffers are None until then, so an
     unquantized model's state_dict is unchanged. While ``record`` is set
     (utils/quantize.calibrate), a float forward keeps the running maximum
     over batches of its input's per-channel |x| in ``absmax``."""
@@ -135,7 +136,7 @@ class Conv(nn.Module):
                 x, self.w8, self.s_in, self.s_w,
                 (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps),
                 self.conv.stride, self.conv.padding,
-                act=isinstance(self.act, nn.SiLU))
+                act=isinstance(self.act, nn.SiLU), groups=self.conv.groups)
         if self.record:
             a = x.detach().abs().amax(dim=(0, 2, 3)).float()
             self.absmax = a if self.absmax is None else torch.maximum(

@@ -154,8 +154,8 @@ def quant_tree(model: nn.Module) -> dict:
                   "s_w": m.s_w.cpu().numpy()}
         if getattr(m, "s_in", None) is not None:
             leaves["s_in"] = m.s_in.cpu().numpy()
-        for k, v in leaves.items():
-            _set(out, path + (k,), np.ascontiguousarray(v))
+        for k, v in leaves.items():     # (np.ascontiguousarray makes 0-d 1-d)
+            _set(out, path + (k,), np.array(v, order="C"))
     return out
 
 

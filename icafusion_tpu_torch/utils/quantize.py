@@ -41,7 +41,6 @@ from icafusion_tpu_torch.nn.fusion import QLinear
 from icafusion_tpu_torch.nn.layers import Conv
 from icafusion_tpu_torch.utils.convert import _set
 from icafusion_tpu_torch.utils.convert import quant_tree  # noqa: F401
-from icafusion_tpu_torch.utils.general import not_ported
 
 # the JAX package's version string: a .calib of another version is ignored
 QUANT_SCHEME_VERSION = "2-perchannel-fold"
@@ -241,6 +240,7 @@ def quantize_model(model, calib: dict, min_scale: float = 1e-8,
     package's quantize_variables builds its quant collection:
 
         s_in = max(absmax / 127, min_scale)            per input channel
+               (a grouped conv: max(max absmax / 127, min_scale), one scalar)
         w_eff = w * s_in                               (HWIO, numpy fp32)
         s_w = max(max|w_eff| / 127, min_scale)         per output channel
               (or the MSE search with weight_clip='mse')
@@ -262,20 +262,21 @@ def quantize_model(model, calib: dict, min_scale: float = 1e-8,
         if m.conv.weight.dtype != torch.float32:
             raise ValueError("quantize_model reads float32 weights: quantize "
                              "the float32 model, then cast it")
-        if m.conv.groups != 1:
-            # the JAX package quantizes a grouped conv with a per-tensor
-            # input scale (its utils/quantize.py:263); the int8 kernel
-            # takes ungrouped convs only
-            not_ported(f"{name}: the int8 conv of a grouped conv", "A10")
         w = m.conv.weight.detach().cpu().numpy().transpose(2, 3, 1, 0)  # HWIO
         if w.shape[2] < min_ch or w.shape[3] < min_ch:
             continue
         absmax = np.asarray(absmax, np.float32).reshape(-1)
-        if absmax.shape[0] != w.shape[2]:
+        if absmax.shape[0] != m.conv.in_channels:
             raise ValueError(f"{name}: absmax has {absmax.shape[0]} channels, "
-                             f"the conv {w.shape[2]}")
-        s_in = np.maximum(absmax / 127.0, min_scale)
-        w_eff = w * np.reshape(s_in, (1, 1, -1, 1))
+                             f"the conv {m.conv.in_channels}")
+        if absmax.shape[0] == w.shape[2]:
+            s_in = np.maximum(absmax / 127.0, min_scale)
+            w_eff = w * np.reshape(s_in, (1, 1, -1, 1))
+        else:
+            # a grouped conv (kernel Cin / g): one per-tensor scale, as the
+            # JAX package takes it
+            s_in = np.float32(max(float(absmax.max()) / 127.0, min_scale))
+            w_eff = w * s_in
         absmax_w = np.abs(w_eff).max(axis=(0, 1, 2))
         if weight_clip == "mse":
             s_w = _mse_scales(w_eff.reshape(-1, w_eff.shape[3]), absmax_w,
@@ -287,7 +288,7 @@ def quantize_model(model, calib: dict, min_scale: float = 1e-8,
         m.w8 = torch.from_numpy(np.ascontiguousarray(
             w8.transpose(3, 0, 1, 2))).to(dev)
         m.s_w = torch.from_numpy(s_w.astype(np.float32)).to(dev)
-        m.s_in = torch.from_numpy(s_in.astype(np.float32)).to(dev)
+        m.s_in = torch.from_numpy(np.asarray(s_in, np.float32)).to(dev)
         n += 1
     if not n:
         raise ValueError("no quantizable convs found (empty calibration?)")

@@ -74,6 +74,24 @@ gated run does not make. Each subcommand needs a CUDA device.
         mAP@50 13a must repeat; the synthetic pairs of phase 6 are made
         anew. Returns phase 13's launches.
 
+    python3 port_probes.py wrapper-cost [--root DIR]
+
+        The host's cost of one eager call of each kernel wrapper
+        (dual_cross_attention, conv3x3_bn_silu, conv_int8_bn_act,
+        greedy_nms) under torch.inference_mode, at shapes whose kernels
+        run in a few microseconds: 1000 calls queued back to back, timed
+        by the host clock and by CUDA events around them (the card waits
+        on the host there, so both give the host's time a call), the
+        median of 5 such rounds. The
+        package comes from DIR, as for attention, so that one call can
+        compare a change with its parent.
+
+    python3 port_probes.py export
+
+        chip_smoke.py's phase 14 alone (export, Grad-CAM, the grouped int8
+        path, an ensemble), after the kernels' build. Returns phase 14's
+        launches and the grouped path's kernels-line entry.
+
 Each prints one JSON object as its last line.
 """
 
@@ -451,6 +469,75 @@ def dist_faults() -> dict:
     return res
 
 
+def wrapper_cost(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import time
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
+    from icafusion_tpu_torch.kernels.cross_attention import (
+        dual_cross_attention)
+    from icafusion_tpu_torch.kernels.nms import greedy_nms
+    from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
+    from icafusion_tpu_torch.smoke import common as cs
+    from icafusion_tpu_torch.smoke import int8 as si
+    assert Path(dual_cross_attention.__code__.co_filename).is_relative_to(
+        root), dual_cross_attention.__code__.co_filename
+    _build.library()
+    gen = torch.Generator().manual_seed(0)
+    cgen = torch.Generator(device="cuda").manual_seed(0)
+    att = cs.attention_case(1, 16, 64, torch.bfloat16, gen)
+    conv = cs.conv_case((1, 64, 8, 8), torch.bfloat16, torch.channels_last,
+                        gen)
+    q = si.int8_case(1, (64, 64, 1, 1, 8, 8), torch.bfloat16, cgen)
+    boxes, scores = cs.nms_case(1, 64, gen)
+    calls = {
+        "dual_cross_attention": lambda: dual_cross_attention(*att,
+                                                             num_heads=8),
+        "conv3x3_bn_silu": lambda: conv3x3_bn_silu(*conv),
+        "conv_int8_bn_act": lambda: conv_int8_bn_act(*q),
+        "greedy_nms": lambda: greedy_nms(boxes, scores, 0.45, 10)}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            for _ in range(50):
+                fn()
+            host, events = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t = time.perf_counter()
+                for _ in range(1000):
+                    fn()
+                host.append(1e3 * (time.perf_counter() - t))
+                end.record()
+                torch.cuda.synchronize()
+                events.append(start.elapsed_time(end))
+            out[name] = {"host_us": round(float(np.median(host)), 3),
+                         "events_us": round(float(np.median(events)), 3),
+                         "events_us_min": round(min(events), 3)}
+            print(f"   {name}: {out[name]['host_us']:.3f} us a call (host "
+                  f"clock), {out[name]['events_us']:.3f} us (CUDA events; "
+                  f"least {out[name]['events_us_min']:.3f}), median of 5 x "
+                  "1000 calls", flush=True)
+    return out
+
+
+def export_phase(card: str) -> dict:
+    import tempfile
+
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.smoke.export import export_slice
+    torch.backends.cuda.matmul.allow_tf32 = False    # as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        entry, total = export_slice(card, Path(tmp))
+    entry["bound_by"] = sorted(entry["bound_by"])
+    return {"grouped": entry, "launches": total}
+
+
 def reference(card: str) -> dict:
     import tempfile
 
@@ -492,6 +579,9 @@ def main(argv=None) -> int:
     sub.add_parser("int8-forward")
     sub.add_parser("dist-faults")
     sub.add_parser("reference")
+    w = sub.add_parser("wrapper-cost")
+    w.add_argument("--root", type=Path, default=HERE)
+    sub.add_parser("export")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("port_probes: no CUDA device", file=sys.stderr)
@@ -514,6 +604,11 @@ def main(argv=None) -> int:
         res = {"dist_faults": dist_faults()}
     elif args.cmd == "reference":
         res = {"reference": reference(card)}
+    elif args.cmd == "wrapper-cost":
+        res = {"root": str(args.root.resolve()),
+               "wrapper_cost": wrapper_cost(args.root.resolve())}
+    elif args.cmd == "export":
+        res = {"export": export_phase(card)}
     else:
         res = {"fp64": fp64(FP64_CFG, FP64_SIZE, FP64_SCALES)}
     res["card"] = card

@@ -755,3 +755,170 @@ def test_kitchen_sink_on_the_card_matches_the_cpu(dev):
             assert tuple(b - a for a, b in zip(before, after)) == (0, 1, 0)
     torch.testing.assert_close(pred[str(dev)], pred["cpu"], rtol=1e-3,
                                atol=1e-3)
+
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_matches_the_plain_gradients(dev, dtype):
+    """Under grad the attention wrapper launches the kernel through its
+    autograd Function (one launch a forward) and its backward is the
+    plain version's vjp: the tokens', weights' and biases' gradients
+    equal autograd's through the plain version (fp32 1e-4, bf16 3e-2 of
+    each gradient's largest value); the forward within the kernel
+    tolerances."""
+    vis, ir, ws, bs = (
+        t.requires_grad_() if torch.is_tensor(t) else
+        [w.requires_grad_() for w in t]
+        for t in _attention_args(2, 100, 256, dtype, dev, seed=21))
+    inputs = [vis, ir, *ws, *bs]
+    before = dual_cross_attention.launches
+    out = dual_cross_attention(vis, ir, ws, bs)
+    assert dual_cross_attention.launches == before + 1
+    assert all(o.grad_fn is not None for o in out)
+    want = dual_cross_attention_reference(vis, ir, ws, bs)
+    g = [torch.randn_like(o) for o in out]
+    got_g = torch.autograd.grad(out, inputs, g)
+    want_g = torch.autograd.grad(want, inputs, g)
+    rtol, atol = ATTENTION_TOL[dtype]
+    for o, w in zip(out, want):
+        torch.testing.assert_close(o.float(), w.float(), rtol=rtol, atol=atol)
+    tol = GRAD_TOL[dtype]
+    for a, b in zip(got_g, want_g):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_autograd_matches_the_plain_gradients(dev, dtype):
+    """The fused conv under grad: x's, w's, scale's and bias's gradients
+    from the plain version's vjp, equal to autograd's through it; an
+    eval-mode Conv(64, 64, 3, 1) forward under grad keeps a grad_fn and
+    gives the BatchNorm parameters gradients."""
+    args = [t.requires_grad_() for t in _conv_args(
+        (2, 64, 24, 40), dtype, torch.channels_last, dev)]
+    before = conv3x3_bn_silu.launches
+    out = conv3x3_bn_silu(*args)
+    assert conv3x3_bn_silu.launches == before + 1 and out.grad_fn is not None
+    want = conv3x3_bn_silu_reference(*args)
+    g = torch.randn_like(out)
+    tol = GRAD_TOL[dtype]
+    for a, b in zip(torch.autograd.grad(out, args, g),
+                    torch.autograd.grad(want, args, g)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * float(b.float().abs().max()))
+    mod = Conv(64, 64, 3, 1).eval().to(dev)
+    x = torch.randn(1, 64, 16, 16, device=dev, requires_grad=True)
+    mod(x).sum().backward()
+    assert x.grad is not None and mod.bn.weight.grad is not None
+    assert conv3x3_bn_silu.launches == before + 2
+
+
+def test_int8_conv_and_nms_raise_under_grad_on_the_card(dev):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w8, s_in, s_w, bn, s, p = smoke_int8.int8_case(
+        1, (16, 32, 3, 1, 8, 8), torch.float32, gen)
+    with pytest.raises(RuntimeError, match="conv_int8_bn_act"):
+        conv_int8_bn_act(x.requires_grad_(), w8, s_in, s_w, bn, s, p)
+    boxes, scores = _nms_inputs(1, 64, dev, seed=1, pad=-1.0)
+    with pytest.raises(RuntimeError, match="greedy_nms"):
+        greedy_nms(boxes.requires_grad_(), scores, 0.45, 10)
+
+
+# (Cin, Cout, k, s, H, W, groups): depthwise 3x3 and 5x5 (GhostConv's), a
+# stride-2 DWConv (GhostBottleneck's), g = 2 with Cout / g past one
+# 128-channel tile, g = 4 on a 1x1 and a ragged map
+INT8_GROUPED_CASES = [(64, 64, 3, 1, 20, 20, 64), (24, 24, 5, 1, 16, 16, 24),
+                      (32, 32, 3, 2, 16, 16, 32), (64, 320, 3, 1, 9, 13, 2),
+                      (48, 96, 1, 1, 7, 11, 4)]
+
+
+@pytest.mark.parametrize("case", INT8_GROUPED_CASES)
+@pytest.mark.parametrize("layout", [torch.channels_last,
+                                    torch.contiguous_format])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_grouped_direct_path_matches_reference(dev, case, layout, dtype):
+    """A grouped conv takes the direct path ("grouped"): its int32
+    accumulators equal the plain version's exactly (with a per-tensor
+    s_in, as quantize_model gives a grouped conv), its outputs within
+    smoke_int8.INT8_TOL of the largest."""
+    from icafusion_tpu_torch.kernels.conv_int8 import (
+        conv_int8_bn_act_reference, plan_for)
+    *shape, g = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(case))
+    x, w8, s_in, s_w, bn, s, p = smoke_int8.int8_case(2, tuple(shape), dtype,
+                                                      gen, layout)
+    w8 = w8[..., :shape[0] // g].contiguous()
+    s_in = s_in.max().reshape(())
+    args = (x, w8, s_in, s_w, bn, s, p)
+    assert plan_for(x, w8, s, p, groups=g).reason == "grouped"
+    before = conv_int8_bn_act.grouped_launches
+    acc = conv_int8_bn_act(*args, epilogue=False, groups=g)
+    out = conv_int8_bn_act(*args, groups=g)
+    assert conv_int8_bn_act.grouped_launches == before + 2
+    ref_acc = conv_int8_bn_act_reference(*args, epilogue=False, groups=g)
+    ref = conv_int8_bn_act_reference(*args, groups=g)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref_acc)
+    tol = smoke_int8.INT8_TOL[dtype] * float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def test_each_custom_op_matches_its_wrapper(dev):
+    """torch.ops.icafusion.* on CUDA tensors launch the wrappers' kernels
+    (each counted once) and give the wrappers' outputs bit for bit."""
+    from icafusion_tpu_torch.kernels import ops
+    vis, ir, ws, bs = _attention_args(2, 100, 256, torch.bfloat16, dev)
+    n = dual_cross_attention.launches
+    got = torch.ops.icafusion.dual_cross_attention(vis, ir, ws, bs, 8)
+    want = dual_cross_attention(vis, ir, ws, bs)
+    assert dual_cross_attention.launches == n + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    args = _conv_args((2, 64, 20, 20), torch.bfloat16, torch.channels_last,
+                      dev)
+    got = torch.ops.icafusion.conv3x3_bn_silu(*args)
+    assert torch.equal(got, conv3x3_bn_silu(*args))
+    assert got.stride() == args[0].stride()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x, w8, s_in, s_w, bn, s, p = smoke_int8.int8_case(
+        2, (64, 96, 3, 1, 20, 24), torch.bfloat16, gen)
+    n = conv_int8_bn_act.launches
+    got = ops.conv_int8_bn_act(x, w8, s_in, s_w, bn, s, p, True, True, 1)
+    want = conv_int8_bn_act(x, w8, s_in, s_w, bn, s, p)
+    assert conv_int8_bn_act.launches == n + 2 and torch.equal(got, want)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    boxes, scores = _nms_inputs(2, 1024, dev, seed=3, pad=-1.0)
+    got = torch.ops.icafusion.greedy_nms(boxes, scores, 0.45, 300)
+    want = greedy_nms(boxes, scores, 0.45, 300)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pt2_of_the_tiny_model_on_the_card(dev, tmp_path):
+    """cli.export's program of the tiny model on the card (with --nms):
+    its graph holds the icafusion::* nodes, it reloads, and its run
+    launches the kernels (3 attention, 3 fused convs, 1 NMS) and equals
+    the eager forward bit for bit."""
+    from icafusion_tpu_torch.cli.export import export_program, program_ops
+    from icafusion_tpu_torch.ops.nms import non_max_suppression
+    model = build_model(tiny_icafusion_config(),
+                        generator=torch.Generator().manual_seed(0))
+    model = model.eval().to(dev)
+    program = export_program(model, 2, 64, nms=(0.25, 0.45))
+    assert program_ops(program) == {"dual_cross_attention": 3,
+                                    "conv3x3_bn_silu": 3, "greedy_nms": 1}
+    torch.export.save(program, str(tmp_path / "tiny.pt2"))
+    run = torch.export.load(str(tmp_path / "tiny.pt2")).module()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, y = (torch.rand(2, 3, 64, 64, device=dev, generator=g)
+            for _ in range(2))
+    counts = (dual_cross_attention.launches, conv3x3_bn_silu.launches,
+              greedy_nms.launches)
+    with torch.inference_mode():
+        got = run(x, y)
+        after = (dual_cross_attention.launches, conv3x3_bn_silu.launches,
+                 greedy_nms.launches)
+        want = non_max_suppression(model(x, y), 0.25, 0.45, top_k=1024)
+    assert tuple(b - a for a, b in zip(counts, after)) == (3, 3, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

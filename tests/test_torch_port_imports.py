@@ -31,8 +31,12 @@ assert "icafusion_tpu_torch.nn.backbones" in names, names
 assert "icafusion_tpu_torch.parallel.mesh" in names, names
 weights = ("utils.torch_convert", "utils.loggers")
 assert all("icafusion_tpu_torch." + t in names for t in weights), names
+export = ("export", "export.onnx_proto", "export.onnx_numpy",
+          "export.onnx_export", "cli.export", "models.gradcam",
+          "models.ensemble", "kernels.ops")
+assert all("icafusion_tpu_torch." + t in names for t in export), names
 smoke = ("common", "train", "val", "int8", "serve", "configs", "parallel",
-         "reference")
+         "reference", "export")
 assert all("icafusion_tpu_torch.smoke." + t in names for t in smoke), names
 import chip_smoke, port_probes
 bad = sorted(m for m in sys.modules
@@ -49,7 +53,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
-    assert int(n) >= 70, out.stdout      # every module was walked
+    assert int(n) >= 80, out.stdout      # every module was walked
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
