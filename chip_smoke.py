@@ -160,13 +160,33 @@ exit code is non-zero and the final line is never printed:
    every grouped int8 conv's int32 accumulators equal the plain version's
    at B = 1, 4 and 32, the grouped path timed beside cuDNN's bf16 grouped
    conv; (g) an ensemble of two seeded yolov5n members on the card, its
-   candidates each member's own.
+   candidates each member's own;
+15. stream merging, evolution and profiling (smoke/merge.py): (a) the
+   flagship (phase 4b's weights) served at 640, batch 4, merged at 3
+   pairs against unmerged, in fp32 with TF32 off (decoded predictions
+   within 1e-3), bf16, int8 and int8 with fp32 float parts: detections at
+   conf 0.25 matched both ways (>= 0.9 over all detections) but in int8
+   with bf16, where every int8 conv of a merged forward is held exactly to
+   its plain version and the match is printed beside the unmerged int8
+   engine's against bf16 (the seeded model fills max_det, and any rounding
+   change moves int8's ties there); each mode's device ms a request merged
+   and unmerged and the launches of three counted requests; (b) trained n320 through cli.val
+   --merge 7: fp32 mAP@50 within 1e-4 of the unmerged run, --int8 within
+   0.3 points of the JAX int8 record; (c) three bf16 SGD steps of
+   yolov5l-Transfusion 640, batch 8, merged at 3 pairs with the gradient
+   mask against unmerged steps from the same weights: losses within 2e-2,
+   the zero blocks exactly 0, the checkpoint written unmerged and loaded
+   into an unmerged model, step times; (d) cli.train --evolve 2 --epochs
+   1 at yolov5n 320 on phase 6c's pairs: evolve.csv and hyp_evolved.yaml;
+   (e) model_info of yolov5l at 640 on the card equal to the CPU's,
+   profile_layers' rows finite, a trace written and parsed.
 
 The phase bodies live in icafusion_tpu_torch/smoke/ (one module a group
 of phases); this script keeps the order, the names and the summary lines.
 Before the last line it prints one JSON object with each kernel's launches
-on the main path (phases 4b, 8, 10a, 12, 13a-13c and 14; the int8 conv's
-in 11b, 12d and 14c/14f, and its grouped path's in 14f), error,
+on the main path (phases 4b, 8, 10a, 12, 13a-13c, 14 and 15's merged
+runs; the int8 conv's in 11b, 12d, 14c/14f and 15a/15b, and its grouped
+path's in 14f), error,
 device times (kernel, plain version and library yardstick, from
 torch.profiler) and bound; the
 last line is {"ok": true, "device": {...}}. Should the profiler record no
@@ -241,6 +261,7 @@ def main(argv=None) -> int:
     from icafusion_tpu_torch.smoke.parallel import parallel_slice
     from icafusion_tpu_torch.smoke.reference import reference_slice
     from icafusion_tpu_torch.smoke.export import export_slice
+    from icafusion_tpu_torch.smoke.merge import merge_slice
 
     t_all = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -614,7 +635,6 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ref = reference_slice(card, s640_fp32_map50, data_yaml, runs,
                               Path(tmp))
-    train_tmp.cleanup()
     launches = {k: v + ref.get(k, 0) for k, v in launches.items()}
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -623,6 +643,13 @@ def main(argv=None) -> int:
     launches = {k: v + exp.get(k, 0) for k, v in launches.items()}
     launches["conv_int8_bn_act (grouped)"] = exp["conv_int8_bn_act (grouped)"]
     assert launches["conv_int8_bn_act (grouped)"] > 0, launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        merged = merge_slice(card, data_yaml, Path(tmp))
+    train_tmp.cleanup()
+    for k in ("dual_cross_attention", "greedy_nms", "conv_int8_bn_act"):
+        assert merged[k] > 0, merged
+    launches = {k: v + merged.get(k, 0) for k, v in launches.items()}
 
     kernels = []
     for name, src, tpu in (

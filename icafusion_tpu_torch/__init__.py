@@ -9,3 +9,11 @@ that path (dual cross-attention, greedy NMS) are hand-written CUDA C++ in
 
 This package imports torch only: never jax, flax or ``icafusion_tpu``.
 """
+
+__version__ = "0.1.0"
+
+from icafusion_tpu_torch.config import (load_data_config,  # noqa: E402
+                                        load_hyp_config, load_model_config)
+
+__all__ = ["load_model_config", "load_data_config", "load_hyp_config",
+           "__version__"]

@@ -7,8 +7,6 @@ from pathlib import Path
 
 import torch
 
-from icafusion_tpu_torch.utils.general import not_ported
-
 
 def resolve_model_config(cfg: str, nc=None):
     """A model YAML (a path or a preset name), or a zoo spec as the JAX CLI
@@ -38,15 +36,18 @@ def load_model_for_inference(cfg: str, weights: str, nc=None, merge=0):
     weights: EMA first). weights is a .ckpt of either package or a
     reference .pt (utils/torch_convert: every port tensor the .pt names is
     filled, the rest keep a seeded draw, as the JAX package keeps its
-    init's); a missing .pt raises FileNotFoundError. Stream merging (merge
-    other than 0) is not ported (A10)."""
+    init's); a missing .pt raises FileNotFoundError. merge=K (an int or a
+    numeric string; "auto" is 0 in the port) stream-merges the first K
+    RGB/IR layer pairs: the standard weights are loaded, then merged into
+    the merged graph (utils/stream_merge.py)."""
     from icafusion_tpu_torch.models.assembler import build_model
     from icafusion_tpu_torch.utils.checkpoint import load_inference_variables
     from icafusion_tpu_torch.utils.convert import load_jax_variables
+    from icafusion_tpu_torch.utils.stream_merge import (merged_model,
+                                                        resolve_merge)
 
-    if str(merge) not in ("0", ""):
-        not_ported(f"--merge {merge} (stream merging)", "A10")
     mc = resolve_model_config(cfg, nc=nc)
+    k = resolve_merge(merge, mc)
     if Path(weights).suffix == ".pt":
         from icafusion_tpu_torch.utils.torch_convert import (
             convert_state_dict, load_torch_checkpoint)
@@ -55,10 +56,10 @@ def load_model_for_inference(cfg: str, weights: str, nc=None, merge=0):
         model = build_model(mc, generator=torch.Generator().manual_seed(0))
         model, _ = convert_state_dict(load_torch_checkpoint(weights), model,
                                       strict=False)
-        return mc, model
-    model = load_jax_variables(build_model(mc),
-                               load_inference_variables(weights))
-    return mc, model
+    else:
+        model = load_jax_variables(build_model(mc),
+                                   load_inference_variables(weights))
+    return mc, merged_model(model, k) if k else model
 
 
 def mc_min_size(mc) -> int:

@@ -7,8 +7,8 @@ device, drawn, saved and timed; or a pair of videos, or of live streams.
         --cfg zoo:tfb:s --source1 visible/test --source2 infrared/test \\
         --save-dir runs/detect [--rect] [--save-txt] [--device cpu]
 
-It runs on the CUDA card (--device cpu for the CPU). A --merge other than
-0 is not ported and raises with its ROADMAP item.
+It runs on the CUDA card (--device cpu for the CPU). --merge K serves the
+stream-merged graph (utils/stream_merge.py).
 """
 
 from __future__ import annotations
@@ -66,7 +66,9 @@ def parse_args(argv=None):
                     help="box line thickness px (default: auto from size)")
     ap.add_argument("--hide-labels", action="store_true")
     ap.add_argument("--merge", default="0", metavar="K",
-                    help="stream merging (not ported: 0 only)")
+                    help="stream-merge the first K RGB/IR layer pairs "
+                         "(block-diagonal kernels, the same outputs; "
+                         "utils/stream_merge.py); 'auto' is 0 in the port")
     ap.add_argument("--hide-conf", action="store_true")
     ap.add_argument("--names", nargs="*", default=None)
     ap.add_argument("--nosave", action="store_true")

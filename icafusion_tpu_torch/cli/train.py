@@ -12,8 +12,10 @@ torchrun launch:
     torchrun --nproc-per-node 4 -m icafusion_tpu_torch.cli.train \\
         --distributed --cfg ... --data ... --batch-size 32
 
---batch-size is the global batch in both. Flags whose paths are not ported
-raise with the ROADMAP item that holds them.
+--batch-size is the global batch in both. --merge-streams K trains the
+stream-merged graph (checkpoints keep the standard layout); --evolve N runs
+N generations of hyperparameter evolution (train/evolve.py), each a short
+run, and writes <project>/evolve.csv and <project>/hyp_evolved.yaml.
 """
 
 from __future__ import annotations
@@ -21,9 +23,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import random
-
-import numpy as np
 
 
 def parse_args(argv=None):
@@ -70,14 +69,19 @@ def parse_args(argv=None):
     ap.add_argument("--adam", action="store_true",
                     help="Adam, betas=(momentum, 0.999)")
     ap.add_argument("--evolve", type=int, default=0, metavar="N",
-                    help="hyperparameter evolution (not ported)")
+                    help="evolve the hyperparameters for N generations "
+                         "of short runs (reference GA, train.py:590-670)")
     ap.add_argument("--distributed", action="store_true",
                     help="multi-process training under torchrun: join its "
                          "env:// process group (RANK, WORLD_SIZE, "
                          "MASTER_ADDR, MASTER_PORT); rank 0 alone writes "
                          "and evaluates")
     ap.add_argument("--merge-streams", default="0", metavar="K",
-                    help="stream-merged training (not ported)")
+                    help="stream-merged training: the first K RGB/IR "
+                         "layer pairs run block-diagonal with masked "
+                         "gradients (utils/stream_merge.py); checkpoints "
+                         "keep the standard layout; 'auto' is 0 in the "
+                         "port")
     ap.add_argument("--linear-lr", action="store_true",
                     help="linear lr decay instead of one-cycle cosine")
     ap.add_argument("--label-smoothing", type=float, default=0.0,
@@ -115,14 +119,10 @@ def main(argv=None):
     from icafusion_tpu_torch.cli._common import resolve_model_config
     from icafusion_tpu_torch.config import load_data_config, load_hyp_config
     from icafusion_tpu_torch.train.fit import FitConfig, fit
-    from icafusion_tpu_torch.utils.general import check_img_size, not_ported
+    from icafusion_tpu_torch.utils.general import check_img_size, init_seeds
+    from icafusion_tpu_torch.utils.stream_merge import resolve_merge
 
-    if args.evolve:
-        not_ported("--evolve", "A10")
-    if str(args.merge_streams) not in ("0", ""):
-        not_ported("--merge-streams", "A10")
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    init_seeds(args.seed)
     data_cfg = load_data_config(args.data)
     hyp = load_hyp_config(args.hyp)
     if args.label_smoothing:
@@ -132,27 +132,71 @@ def main(argv=None):
                  else ("item",))
         data_cfg = dataclasses.replace(data_cfg, nc=1, names=names)
     model_cfg = resolve_model_config(args.cfg, nc=data_cfg.nc)
-    cfg = FitConfig(
-        model_cfg=model_cfg, data_cfg=data_cfg, hyp=hyp, epochs=args.epochs,
-        batch_size=args.batch_size, imgsz=check_img_size(args.img_size, 32),
-        project=args.project, name=args.name, seed=args.seed, bf16=args.bf16,
-        workers=args.workers, eval_every=args.eval_every,
-        pretrained=args.weights, resume=args.resume, n_devices=args.devices,
-        save_every=args.save_every, warmup_min_steps=args.warmup_min,
-        multi_scale=args.multi_scale, image_weights=args.image_weights,
-        autoanchor=not args.noautoanchor,
-        accum_steps=resolve_accum(args.accum, args.batch_size),
-        distributed=args.distributed, adam=args.adam,
-        results_format=args.results_format, kaist_ann=args.kaist_ann,
-        linear_lr=args.linear_lr, single_cls=args.single_cls,
-        nosave=args.nosave, notest=args.notest, freeze=tuple(args.freeze),
-        device=args.device)
-    result = fit(cfg)
+    merge = resolve_merge(args.merge_streams, model_cfg)
+    imgsz = check_img_size(args.img_size, 32)
+
+    def make_cfg(hyp_cfg, name=None):
+        return FitConfig(
+            model_cfg=model_cfg, data_cfg=data_cfg, hyp=hyp_cfg,
+            epochs=args.epochs, batch_size=args.batch_size, imgsz=imgsz,
+            project=args.project, name=name or args.name, seed=args.seed,
+            bf16=args.bf16, workers=args.workers,
+            eval_every=args.eval_every, pretrained=args.weights,
+            resume=args.resume, n_devices=args.devices,
+            save_every=args.save_every, warmup_min_steps=args.warmup_min,
+            multi_scale=args.multi_scale, image_weights=args.image_weights,
+            autoanchor=not args.noautoanchor,
+            accum_steps=resolve_accum(args.accum, args.batch_size),
+            distributed=args.distributed, adam=args.adam,
+            merge_streams=merge, results_format=args.results_format,
+            kaist_ann=args.kaist_ann, linear_lr=args.linear_lr,
+            single_cls=args.single_cls, nosave=args.nosave,
+            notest=args.notest, freeze=tuple(args.freeze),
+            device=args.device)
+
+    if args.evolve:
+        return run_evolve(args, hyp, make_cfg)
+    result = fit(make_cfg(hyp))
     if not args.distributed or os.environ.get("RANK", "0") == "0":
         print(f"done: mAP50={result.get('map50', 0):.4f} "
               f"best_fitness={result.get('best_fitness', 0):.4f} "
               f"run={result.get('run_dir')}")
     return result
+
+
+def run_evolve(args, hyp, make_cfg):
+    """--evolve N: a short fit() a generation, scored by its best fitness
+    (train.py:590-670); <project>/evolve.csv logs every candidate and
+    <project>/hyp_evolved.yaml takes the best. The value-against-fitness
+    plot is drawn where matplotlib imports, else skipped and logged."""
+    import importlib.util
+    from pathlib import Path
+
+    import yaml
+
+    from icafusion_tpu_torch.train.evolve import evolve
+    from icafusion_tpu_torch.train.fit import fit
+    gen = [0]
+
+    def train_fn(hyp_cand):
+        gen[0] += 1
+        r = fit(make_cfg(hyp_cand, name=f"{args.name}_evolve{gen[0]}"))
+        return r.get("best_fitness", 0.0)
+
+    project = Path(args.project)
+    best = evolve(train_fn, hyp, generations=args.evolve,
+                  log_path=str(project / "evolve.csv"), seed=args.seed)
+    out = project / "hyp_evolved.yaml"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(yaml.safe_dump(best.as_dict()))
+    png = None
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed: the evolution plot is skipped")
+    else:
+        from icafusion_tpu_torch.utils.plots import plot_evolution
+        png = plot_evolution(project / "evolve.csv")
+    print(f"evolve done: best hyp -> {out} (plot: {png})")
+    return best
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ cli/val.py (reference test.py:370-438):
 
 It evaluates on the CUDA card (--device cpu for the CPU). --int8
 evaluates the int8 W8A8 model, calibrated on the first two val batches
-(and persisted beside a checkpoint file as <weights>.calib). A --merge
-other than 0 is not ported and raises with its ROADMAP item.
+(and persisted beside a checkpoint file as <weights>.calib). --merge K
+evaluates the stream-merged graph (utils/stream_merge.py), --int8 then
+calibrates and quantizes the merged model.
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ def parse_args(argv=None):
                          "<weights>.calib and reused), Detect feeders kept "
                          "in float")
     ap.add_argument("--merge", default="0", metavar="K",
-                    help="stream-merge the first K RGB/IR layer pairs (not "
-                         "ported: 0 only)")
+                    help="stream-merge the first K RGB/IR layer pairs "
+                         "(block-diagonal kernels, the same outputs; "
+                         "utils/stream_merge.py); 'auto' is 0 in the port")
     ap.add_argument("--confluence", action="store_true",
                     help="replace NMS with confluence clustering (the "
                          "reference's optional swap-in, test.py:140). On "
@@ -97,7 +99,8 @@ def quantize_from_dir(args, ev, nc: int, rgb: str, ir: str) -> None:
     at args.img_size, normalised as the Evaluator normalises them. When
     --weights is a file, the calibration is persisted beside it
     (<weights>.calib, keyed by the checkpoint's sha1, the scheme, the image
-    size, the calibration set and the batch) and loaded on later runs."""
+    size, the calibration set, the batch and the stream-merge count) and
+    loaded on later runs."""
     from icafusion_tpu_torch.data.loader import PairedLoader
     from icafusion_tpu_torch.utils.quantize import (calibrate,
                                                     calibrate_cached,
@@ -119,9 +122,10 @@ def quantize_from_dir(args, ev, nc: int, rgb: str, ir: str) -> None:
 
     w = Path(args.weights)
     if w.is_file():
-        key = calibration_key(str(w), extra={"imgsz": args.img_size,
-                                             "calib_set": rgb,
-                                             "batch": args.batch_size})
+        key = calibration_key(str(w), merge=ev.model.merge_pairs,
+                              extra={"imgsz": args.img_size,
+                                     "calib_set": rgb,
+                                     "batch": args.batch_size})
         calib, hit = calibrate_cached(ev.model, calib_batches,
                                       str(w) + ".calib", key)
         print(f"int8: loaded persisted calibration ({w}.calib)" if hit else

@@ -70,6 +70,11 @@ class ModelConfig:
         """Detect's output channels per level, na * (nc + 5)."""
         return self.na * (self.nc + 5)
 
+    @property
+    def is_two_stream(self) -> bool:
+        """Whether a layer reads the second (IR) image (``from: -4``)."""
+        return any(l.f == -4 for l in self.layers)
+
 
 def _norm_from(f) -> FromSpec:
     if isinstance(f, list):

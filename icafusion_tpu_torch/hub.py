@@ -68,7 +68,9 @@ def pipeline(name: str, weights: Optional[str] = None, nc: int = 3,
              merge_streams="auto", dtype: str = "bfloat16", device=None,
              generator: Optional[torch.Generator] = None):
     """A ready ServingEngine of ``name`` (the autoShape analog,
-    common.py:400-553); merge_streams takes 0 or "auto" (ServingEngine)."""
+    common.py:400-553). merge_streams: K stream-merges the first K RGB/IR
+    layer pairs (utils/stream_merge.py; the same outputs); "auto" is 0 in
+    the port (ServingEngine)."""
     from icafusion_tpu_torch.serve.engine import ServingEngine
     model = create(name, nc=nc, weights=weights, generator=generator)
     return ServingEngine(model, img_size=img_size, batch_size=batch_size,

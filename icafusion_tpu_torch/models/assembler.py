@@ -11,7 +11,10 @@ models/yolo_test.py:115-163 forward_once, :216-302 parse_model):
   JAX package's) instead of eval(); a module missing from it raises "not
   ported". A row repeated n > 1 times whose module does not take n itself
   becomes a ``Repeat`` of n copies. Layers are registered as ``m{i}``,
-  the flax names.
+  the flax names;
+- ``merge_pairs=k`` runs the first k (RGB, IR) layer pairs as one module
+  ``m{i}_{s+i}`` each on the channel-concatenated streams, with
+  block-diagonal kernels (utils/stream_merge.py).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from icafusion_tpu_torch.models.detect import (Detect, check_anchor_order,
                                                default_strides)
 from icafusion_tpu_torch.nn import backbones, fusion, layers
 from icafusion_tpu_torch.utils.general import make_divisible
+from icafusion_tpu_torch.utils.stream_merge import merged_args, validate_merge
 
 # first two resolved args are (c1, c2); c2 is width-scaled
 _CONV_LIKE = {"Conv", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP",
@@ -186,21 +190,62 @@ def resolve_model(cfg: ModelConfig) -> Tuple[Tuple[ResolvedLayer, ...],
     return tuple(resolved), frozenset(save)
 
 
+def _layer(module: str, args: Tuple[Any, ...], n: int) -> nn.Module:
+    return (Repeat(module, args, n) if n > 1 and module != "Detect"
+            else MODULE_BUILDERS[module](args))
+
+
+def _channels(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Channels lo..hi-1 of a merged map, copied into the memory format of
+    ``x`` (channels_last on the card), which the kernels' wrappers take:
+    a channel slice is contiguous in neither format."""
+    fmt = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+           and x.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    return x[:, lo:hi].contiguous(memory_format=fmt)
+
+
 class ICAFusionModel(nn.Module):
     """The two-stream detector: forward(rgb, ir) with NCHW float images
     returns, in eval mode, the decoded predictions (B, N, 5 + nc) in
     float32 (with raw=True, and Detect's raw maps) and, in train mode,
-    Detect's raw maps per level. It is built in eval mode."""
+    Detect's raw maps per level. It is built in eval mode.
 
-    def __init__(self, cfg: ModelConfig):
+    merge_pairs=k runs the first k (RGB, IR) layer pairs as one module
+    ``m{i}_{s+i}`` each on torch.cat([rgb, ir], 1), with block-diagonal
+    kernels (utils/stream_merge.py; fill it with merge_stream_state or
+    load_jax_variables of the JAX package's merged variables). The saved
+    outputs of the merged layers are the halves, and the IR tower resumes
+    from the B half, as the JAX package's model runs
+    (models/assembler.py:268-300)."""
+
+    def __init__(self, cfg: ModelConfig, merge_pairs: int = 0):
         super().__init__()
         self.cfg = cfg
         self.resolved, self.save = resolve_model(cfg)
+        self.merge_pairs = merge_pairs
+        self.stream_start = 0
+        self.merged: frozenset = frozenset()
+        if merge_pairs:
+            k = merge_pairs
+            s = self.stream_start = validate_merge(self.resolved, k)
+            self.merged = frozenset(range(k)) | frozenset(range(s, s + k))
+            for r in self.resolved[:k]:
+                self.add_module(f"m{r.i}_{s + r.i}", _layer(
+                    r.module, merged_args(r.module, r.args), r.n))
         for r in self.resolved:
-            self.add_module(f"m{r.i}", Repeat(r.module, r.args, r.n)
-                            if r.n > 1 and r.module != "Detect"
-                            else MODULE_BUILDERS[r.module](r.args))
+            if r.i not in self.merged:
+                self.add_module(f"m{r.i}", _layer(r.module, r.args, r.n))
         self.train(False)
+
+    def detect_layer(self) -> "ResolvedLayer":
+        return detect_layer(self.cfg)
+
+    def strides(self) -> Tuple[int, ...]:
+        return model_strides(self.cfg)
+
+    def anchors_grid_units(self) -> np.ndarray:
+        return anchors_grid_units(self.cfg)
 
     def cast(self, dtype: torch.dtype) -> "ICAFusionModel":
         """Cast the parameters in place to a compute dtype, the way the JAX
@@ -237,7 +282,25 @@ class ICAFusionModel(nn.Module):
         out = x
         x2 = x if x2 is None else x2
         last = self.resolved[-1].i
+        k, s = self.merge_pairs, self.stream_start
+        if k:
+            if self.merged & (set(capture) | set(overrides or ())):
+                raise ValueError("capture/overrides cannot target stream-"
+                                 f"merged layers {sorted(self.merged)}")
+            xm = torch.cat([out, x2], 1)
+            for r in self.resolved[:k]:
+                xm = getattr(self, f"m{r.i}_{s + r.i}")(xm)
+                if r.i in self.save:
+                    y[r.i] = _channels(xm, 0, r.c2)
+                if s + r.i in self.save:
+                    y[s + r.i] = _channels(xm, r.c2, 2 * r.c2)
+            c = self.resolved[k - 1].c2
+            out, x2 = _channels(xm, 0, c), _channels(xm, c, 2 * c)
         for r in self.resolved:
+            if r.i in self.merged:
+                continue
+            if k and r.i == s + k and r.f == -1:
+                out = x2    # the IR tower resumes from the merged B half
             if r.f == -4:
                 inp = x2
             elif r.f == -1:
@@ -361,15 +424,17 @@ def _lecun_normal(m: nn.Module, generator: Optional[torch.Generator]):
 
 
 def build_model(cfg: ModelConfig,
-                generator: Optional[torch.Generator] = None) -> ICAFusionModel:
+                generator: Optional[torch.Generator] = None,
+                merge_pairs: int = 0) -> ICAFusionModel:
     """The model in float32. With ``generator``, every conv and linear layer
     (C3TR's attention projections too) is drawn anew from it, weights
     He-uniform (kaiming_uniform, a=0) so that
     activations keep their scale through the towers and the random model's
     outputs vary with its input, biases U(+-1/sqrt(fan_in)); the weights then
     depend on the generator's seed alone. The other parameters keep their
-    constructor values."""
-    model = ICAFusionModel(cfg)
+    constructor values. merge_pairs: the stream-merged graph
+    (ICAFusionModel)."""
+    model = ICAFusionModel(cfg, merge_pairs)
     if generator is not None:
         with torch.no_grad():
             for m in model.modules():

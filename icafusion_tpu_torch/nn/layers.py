@@ -493,6 +493,31 @@ class CrossConv(nn.Module):
         return x + y if self.add else y
 
 
+class Sum(nn.Module):
+    """The (weighted) sum of n maps (reference experimental.py:25-43). With
+    ``weight``, the learned gains are 2 sigmoid(w), w initialised to
+    -arange(1, n) / 2, the flax parameter ``w``. Like the JAX package's
+    Sum, it is not in the YAML registry."""
+
+    def __init__(self, n: int, weight: bool = False):
+        super().__init__()
+        self.n = n
+        self.weight = weight
+        if weight:
+            self.w = nn.Parameter(-torch.arange(1.0, n) / 2)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        y = xs[0]
+        if self.weight:
+            w = torch.sigmoid(self.w) * 2
+            for i in range(self.n - 1):
+                y = y + xs[i + 1] * w[i]
+        else:
+            for i in range(self.n - 1):
+                y = y + xs[i + 1]
+        return y
+
+
 class GhostConv(nn.Module):
     """Half the channels from a Conv, the other half from a 5x5 depthwise
     Conv of them (reference experimental.py:46-56)."""

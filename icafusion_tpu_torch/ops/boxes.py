@@ -1,5 +1,6 @@
-"""Box geometry (reference utils/general.py:332-340 xywh2xyxy, :386-407
-scale_coords, :410-452 bbox_iou, :455-477 box_iou)."""
+"""Box geometry (reference utils/general.py:322-340 xyxy2xywh and
+xywh2xyxy, :386-407 scale_coords and clip_coords, :410-452 bbox_iou,
+:455-477 box_iou, :480-485 wh_iou)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,44 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     """(cx, cy, w, h) -> (x1, y1, x2, y2) along the last dim."""
     cx, cy, w, h = x.unbind(-1)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h) along the last dim."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
+def clip_coords(boxes: torch.Tensor, img_hw) -> torch.Tensor:
+    """xyxy boxes clipped to an (h, w) image, as a new tensor."""
+    h, w = img_hw
+    x1, y1, x2, y2 = boxes[..., :4].unbind(-1)
+    return torch.stack([x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w),
+                        y2.clamp(0, h)], -1)
+
+
+def scale_coords(img1_hw, coords: torch.Tensor, img0_hw,
+                 ratio_pad=None) -> torch.Tensor:
+    """xyxy boxes from the letterboxed canvas img1_hw back to the native
+    image img0_hw, clipped to it; ratio_pad = (gain, (pad_w, pad_h)) as
+    the JAX package takes it (the first four columns of ``coords``)."""
+    if ratio_pad is None:
+        gain = min(img1_hw[0] / img0_hw[0], img1_hw[1] / img0_hw[1])
+        pad = ((img1_hw[1] - img0_hw[1] * gain) / 2,
+               (img1_hw[0] - img0_hw[0] * gain) / 2)
+    else:
+        gain, pad = ratio_pad[0], ratio_pad[1]
+    xy = coords[..., :4] - torch.tensor([pad[0], pad[1], pad[0], pad[1]],
+                                        dtype=coords.dtype,
+                                        device=coords.device)
+    return clip_coords(xy / gain, img0_hw)
+
+
+def wh_iou(wh1: torch.Tensor, wh2: torch.Tensor) -> torch.Tensor:
+    """(N, 2) x (M, 2) -> (N, M) IoU of boxes given by width and height
+    alone."""
+    inter = torch.minimum(wh1[:, None, :], wh2[None, :, :]).prod(-1)
+    return inter / (wh1.prod(-1)[:, None] + wh2.prod(-1)[None, :] - inter)
 
 
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, x1y1x2y2: bool = True,

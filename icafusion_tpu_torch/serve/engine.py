@@ -14,8 +14,11 @@ pipelined; ``warmup`` runs one batch; ``throughput`` times steady serving;
 Data parallel (``n_devices``, parallel/mesh.py): one replica of the model
 on each mesh device and every batch split into contiguous row shards, each
 replica's forward and NMS queued on its own device, as the JAX engine
-shards the batch over its mesh. Stream merging is not ported (ROADMAP
-A10).
+shards the batch over its mesh.
+
+``merge_streams=K`` serves the stream-merged graph (utils/stream_merge.py),
+in every dtype and under int8, where the merged model is calibrated and
+quantized.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from icafusion_tpu_torch.ops.nms import (Detections, detections_to_numpy,
 from icafusion_tpu_torch.parallel.mesh import (Mesh, device_count,
                                                device_scope, make_mesh,
                                                replicate, shard_batch)
-from icafusion_tpu_torch.utils.general import not_ported, resolve_device
+from icafusion_tpu_torch.utils.general import resolve_device
 
 TOP_K = 1024   # candidates entering NMS, as the JAX engine serves
 
@@ -48,10 +51,11 @@ class ServingEngine:
 
     img_size: a square side or an (H, W) rect canvas. device=None means
     CUDA and raises where there is none; the CPU must be asked for.
-    merge_streams: 0 or "auto" only. In the JAX package "auto" merges the
-    lane-starved layer pairs of the two streams for the TPU's matrix unit,
-    with outputs identical by construction; the port runs the streams
-    apart, and an explicit count raises (ROADMAP A10).
+    merge_streams: K (an int or a numeric string) runs the first K RGB/IR
+    layer pairs as one block-diagonal module each, with the same outputs
+    (utils/stream_merge.py). 0 and "auto" merge none: in the JAX package
+    "auto" fills the TPU's 128 lanes, which the H100 does not pad, so the
+    port keeps it at 0 until a measurement shows merging pays.
 
     n_devices: the replicas (parallel/mesh.make_mesh: the first n CUDA
     devices, raising where fewer exist, or logical replicas of the CPU);
@@ -64,16 +68,19 @@ class ServingEngine:
     The engine may be called from several threads: a lock lets one of them
     launch the device work of a batch, on every replica, at a time. It
     keeps a reference to ``model``, whose float32 weights ``quantize``
-    reads."""
+    reads (its merged twin where merge_streams is set)."""
 
     def __init__(self, model: ICAFusionModel, img_size: Union[int, Sequence[int]] = 640,
                  batch_size: int = 32, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,
                  dtype: str = "bfloat16", device=None, merge_streams=0,
                  n_devices: Optional[int] = None):
-        if merge_streams not in (0, "0", "auto", None):
-            not_ported(f"merge_streams={merge_streams} (stream merging)",
-                       "A10")
+        from icafusion_tpu_torch.utils.stream_merge import (merged_model,
+                                                            resolve_merge)
+        k = resolve_merge(merge_streams, model.cfg)
+        if k:
+            model = merged_model(model, k)    # raises on a merged model
+        self.merge_streams = model.merge_pairs
         self.device = resolve_device(device, "ServingEngine")
         self.canvas = ((img_size, img_size) if isinstance(img_size, int)
                        else tuple(img_size))
@@ -166,9 +173,9 @@ class ServingEngine:
         Detect-feeder skip; serve from the int8 model.
 
         cache: path of a calibration artifact. When it exists and carries
-        the key (scheme, merge 0, this canvas and ``cache_key``), the
-        calibration forward is skipped; on a miss the engine calibrates and
-        writes it. Returns True on a hit. An engine already quantized
+        the key (scheme, the merge count, this canvas and ``cache_key``),
+        the calibration forward is skipped; on a miss the engine calibrates
+        and writes it. Returns True on a hit. An engine already quantized
         raises: its model no longer runs the float convs that calibration
         records."""
         from icafusion_tpu_torch.utils.quantize import (
@@ -186,7 +193,8 @@ class ServingEngine:
         hit = False
         with self._lock:
             if cache:
-                key = calibration_key(extra={"canvas": list(self.canvas),
+                key = calibration_key(merge=self.merge_streams,
+                                      extra={"canvas": list(self.canvas),
                                              **(cache_key or {})})
                 calib, hit = calibrate_cached(self.model, batches, cache, key)
             else:

@@ -138,8 +138,9 @@ def parse_args(argv=None):
     ap.add_argument("--calib-ir", default=None,
                     help="folder/glob of IR images for int8 calibration")
     ap.add_argument("--merge", default="auto", metavar="K",
-                    help="stream merging: 0 or auto only (the port runs the "
-                         "streams apart)")
+                    help="stream-merge the first K RGB/IR layer pairs "
+                         "(utils/stream_merge.py; the same outputs); 'auto' "
+                         "is 0 in the port")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, raising without one)")
     args = ap.parse_args(argv)
@@ -207,10 +208,10 @@ def build(args):
     from icafusion_tpu_torch.serve.batcher import MicroBatcher
     from icafusion_tpu_torch.serve.engine import ServingEngine
 
-    merge = 0 if str(args.merge) == "auto" else args.merge
-    _, model = load_model_for_inference(args.cfg, args.weights, merge=merge)
+    _, model = load_model_for_inference(args.cfg, args.weights)
     engine = ServingEngine(model, img_size=args.img_size,
-                           batch_size=args.batch_size, device=args.device)
+                           batch_size=args.batch_size, device=args.device,
+                           merge_streams=args.merge)
     if args.int8:
         quantize_engine(engine, args)
     batcher = MicroBatcher(engine, max_wait_ms=args.max_wait_ms)

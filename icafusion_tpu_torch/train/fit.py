@@ -33,8 +33,11 @@ pretrained is a .ckpt of either package or a reference .pt
 Rank 0 writes the nine TensorBoard scalars of each epoch (losses, P, R,
 mAP, lr) where torch.utils.tensorboard imports (utils/loggers.py).
 
-Not ported, and refused with the ROADMAP item named: stream-merged
-training.
+merge_streams=K trains the stream-merged graph (utils/stream_merge.py):
+the state is merged before the first step, the merged modules' gradients
+are masked so that the zero blocks stay exactly 0, the EMA model is
+evaluated merged, and every checkpoint is written in the standard
+(unmerged) layout, as the JAX package's ckpt_view writes it.
 """
 
 from __future__ import annotations
@@ -75,7 +78,11 @@ from icafusion_tpu_torch.utils.plots import (plot_confusion_matrix,
                                              plot_results)
 from icafusion_tpu_torch.utils.general import (increment_path,
                                                labels_to_class_weights,
-                                               not_ported, resolve_device)
+                                               resolve_device)
+from icafusion_tpu_torch.utils.stream_merge import (grad_mask,
+                                                    merge_train_state,
+                                                    resolve_merge,
+                                                    unmerge_train_state)
 from icafusion_tpu_torch.utils.torch_convert import (
     convert_state_dict, load_torch_checkpoint,
     remap_single_stream_to_two_stream)
@@ -166,7 +173,7 @@ class FitConfig:
     accum_steps: Optional[int] = None    # microbatches per optimizer step
     distributed: bool = False            # join torchrun's env:// group
     adam: bool = False
-    merge_streams: int = 0               # A10
+    merge_streams: int = 0               # stream-merged pairs (0: none)
     linear_lr: bool = False
     freeze: tuple = ()
     single_cls: bool = False
@@ -177,9 +184,8 @@ class FitConfig:
     device: Optional[str] = None         # None: CUDA, raising without it
 
 
-def _check_ported(cfg: FitConfig):
-    if cfg.merge_streams:
-        not_ported("merge_streams", "A10")
+def _check_config(cfg: FitConfig):
+    resolve_merge(cfg.merge_streams, cfg.model_cfg)
     if cfg.pretrained and not Path(cfg.pretrained).is_file():
         raise FileNotFoundError(f"no pretrained weights {cfg.pretrained}")
     if cfg.results_format not in ("native", "reference"):
@@ -225,8 +231,11 @@ def _load_pretrained(path: str, model: ICAFusionModel):
 
 
 def ema_model(trainer: Trainer) -> ICAFusionModel:
-    """A model on the trainer's device holding its EMA weights."""
-    model = build_model(trainer.model.cfg).to(trainer.device)
+    """A model on the trainer's device holding its EMA weights (merged
+    where the trainer's model is)."""
+    model = build_model(trainer.model.cfg,
+                        merge_pairs=trainer.model.merge_pairs
+                        ).to(trainer.device)
     missing, unexpected = model.load_state_dict(trainer.ema.tree,
                                                 strict=False)
     if unexpected or any(not k.endswith("num_batches_tracked")
@@ -240,7 +249,7 @@ def fit(cfg: FitConfig) -> dict:
     """Train as FitConfig says; returns the last evaluation's metrics with
     best_fitness and run_dir (rank 0's)."""
     device = resolve_device(cfg.device, "fit")
-    _check_ported(cfg)
+    _check_config(cfg)
     backend = "nccl" if device.type == "cuda" else "gloo"
     if cfg.distributed and not torch.distributed.is_initialized():
         mesh.init_distributed(backend)
@@ -367,11 +376,28 @@ def _fit(cfg: FitConfig, device: torch.device) -> dict:
         best_fit = float(ckpt["meta"]["best_fitness"])
         log(f"resumed from {cfg.resume} at epoch {start_epoch}")
 
+    # --- stream-merged training ---
+    merge_k = resolve_merge(cfg.merge_streams, model_cfg)
+    gmask = None
+    if merge_k:
+        trainer = merge_train_state(model_cfg, trainer, merge_k)
+        gmask = grad_mask(model_cfg, trainer.params, merge_k)
+        log(f"stream-merge: the first {merge_k} RGB/IR layer pairs run "
+            "block-diagonal, their gradients masked")
+
+    def ckpt_view(tr: Trainer) -> Trainer:
+        """Checkpoints keep the standard layout: a merged trainer is
+        unmerged on the host first (lossless: its zero blocks are 0)."""
+        if not merge_k:
+            return tr
+        return unmerge_train_state(model_cfg, tr, merge_k, device="cpu")
+
     scales = (1.0,)
     if cfg.multi_scale:
         scales = viable_train_scales(model_cfg, cfg.imgsz, cfg.imgsz,
                                      MULTI_SCALES, log)
-    steps = {s: trainer.make_train_step(scale=s) for s in scales}
+    steps = {s: trainer.make_train_step(scale=s, grad_mask=gmask)
+             for s in scales}
     scale_rng = np.random.default_rng(cfg.seed + 1)
 
     ref_csv = cfg.results_format == "reference"
@@ -465,12 +491,12 @@ def _fit(cfg: FitConfig, device: torch.device) -> dict:
             if fit_val > best_fit:
                 best_fit = fit_val
                 if not cfg.nosave or last_epoch:
-                    save_checkpoint(wdir / "best.ckpt", trainer, epoch,
-                                    best_fit, background=True)
+                    save_checkpoint(wdir / "best.ckpt", ckpt_view(trainer),
+                                    epoch, best_fit, background=True)
         if is_main and (not cfg.nosave or last_epoch) and (
                 (epoch + 1) % cfg.save_every == 0 or last_epoch):
-            save_checkpoint(wdir / "last.ckpt", trainer, epoch, best_fit,
-                            background=True)
+            save_checkpoint(wdir / "last.ckpt", ckpt_view(trainer), epoch,
+                            best_fit, background=True)
         mesh.barrier()           # the other ranks wait for rank 0's evaluation
         dt = time.time() - t0
         final = ev

@@ -146,11 +146,17 @@ class Trainer:
         this step.
 
         scale != 1 resizes the batch to round(H * scale / 32) * 32 before
-        the forward (jax.image.resize 'linear', antialiased)."""
-        if grad_mask is not None:
-            raise NotImplementedError("grad_mask (stream-merged training) is "
-                                      "not ported")
+        the forward (jax.image.resize 'linear', antialiased).
+
+        grad_mask: {parameter name: 0/1 tensor} (utils/stream_merge.
+        grad_mask), multiplied into those gradients after the ranks' sum
+        and before the optimizer, so that the zero blocks of a
+        stream-merged model stay exactly 0."""
         A = self.accum_steps
+        masks = list((grad_mask or {}).items())
+        unknown = sorted(k for k, _ in masks if k not in self.params)
+        if unknown:
+            raise KeyError(f"grad_mask names no parameter: {unknown[:5]}")
 
         def resize(x):
             if scale == 1.0:
@@ -175,6 +181,8 @@ class Trainer:
                      for k, p in self.params.items()}
             if world() > 1:
                 self._all_reduce(grads, loss_sum, items_sum)
+            for k, m in masks:
+                grads[k].mul_(m)
             self.optimizer.update(self.params, grads, self.opt, self.paths)
             ema_update(self.ema, ema_variables(self.model), self.ema_decay)
             loss, items = loss_sum / A, items_sum / A

@@ -92,6 +92,13 @@ gated run does not make. Each subcommand needs a CUDA device.
         path, an ensemble), after the kernels' build. Returns phase 14's
         launches and the grouped path's kernels-line entry.
 
+    python3 port_probes.py merge
+
+        chip_smoke.py's phase 15 alone (stream merging served, validated
+        and trained, cli.train --evolve, profiling), after the kernels'
+        build, on 48 synthetic 512 x 640 pairs as phase 6 writes them.
+        Returns phase 15's launches on its merged runs.
+
 Each prints one JSON object as its last line.
 """
 
@@ -568,6 +575,22 @@ def reference(card: str) -> dict:
                                work / "13")
 
 
+def merge(card: str) -> dict:
+    import tempfile
+
+    from icafusion_tpu_torch.data.synthetic import make_dataset
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.smoke.merge import merge_slice
+    torch.backends.cuda.matmul.allow_tf32 = False    # as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_dataset(Path(tmp) / "data", 48,
+                            np.random.default_rng(0), hw=(512, 640))
+        (Path(tmp) / "15").mkdir()
+        return merge_slice(card, data, Path(tmp) / "15")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -582,6 +605,7 @@ def main(argv=None) -> int:
     w = sub.add_parser("wrapper-cost")
     w.add_argument("--root", type=Path, default=HERE)
     sub.add_parser("export")
+    sub.add_parser("merge")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("port_probes: no CUDA device", file=sys.stderr)
@@ -609,6 +633,8 @@ def main(argv=None) -> int:
                "wrapper_cost": wrapper_cost(args.root.resolve())}
     elif args.cmd == "export":
         res = {"export": export_phase(card)}
+    elif args.cmd == "merge":
+        res = {"merge": merge(card)}
     else:
         res = {"fp64": fp64(FP64_CFG, FP64_SIZE, FP64_SCALES)}
     res["card"] = card

@@ -1,9 +1,9 @@
 """python -m icafusion_tpu_torch.cli.detect against the JAX package's
 cli.detect on the CPU, on one tiny checkpoint written by the JAX side:
 the folder branch with every output flag, --rect over two aspect ratios,
---augment on a 64 x 96 canvas, the video branch frame by frame; the stream
-branch on a file replayed as a stream; and the drawing half of
-utils/plots.py against the JAX package's.
+--augment on a 64 x 96 canvas, --merge 2, the video branch frame by
+frame; the stream branch on a file replayed as a stream; and the drawing
+half of utils/plots.py against the JAX package's.
 
 Tolerances: txt rows hold normalised coordinates and confidences printed
 with %g (six significant digits); classes and row counts are exact, the
@@ -200,11 +200,16 @@ def test_stream_branch_on_a_replayed_file(ckpt, tmp_path):
 
 
 def test_unported_and_device(ckpt, tmp_path):
-    vis, ir = _folders(tmp_path / "data", [("a", (64, 64))])
+    """--merge 2 (refused before stream merging was ported) against the JAX
+    CLI at --merge 2: equal txt rows; and without a card the CLI needs
+    --device cpu."""
+    vis, ir = _folders(tmp_path / "data", [("a", (64, 64)), ("b", (96, 80))])
+    jdir, pdir = _run_both(ckpt, tmp_path, vis, ir, "--img-size", "64",
+                           "--conf-thres", "0.001", "--save-txt",
+                           "--save-conf", "--merge", "2")
+    assert _assert_txts_equal(jdir, pdir, 6) > 0
     base = ["--weights", str(ckpt), "--cfg", "zoo:tiny", "--source1",
             str(vis), "--source2", str(ir), "--save-dir", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="A10"):
-        detect.main(base + ["--merge", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             detect.main(base)

@@ -1,8 +1,9 @@
 """icafusion_tpu_torch's training loop on the CPU: fit and cli.train on a
 tiny on-disk set (results.csv in both layouts, the KAIST MR columns, the
-plots, checkpoints, resume, pretrained weights, multi-scale), the refusal
-to run without a card unless the CPU is asked for, and the options that
-are not ported."""
+plots, checkpoints, resume, pretrained weights, multi-scale, stream-merged
+training and hyperparameter evolution, the last two against the JAX
+package), the refusal to run without a card unless the CPU is asked for,
+and the options that raise."""
 
 import csv
 import sys
@@ -150,7 +151,8 @@ def test_fit_writes_the_reference_row(data_yaml, tmp_path, monkeypatch,
     # data parallel: no torchrun environment to join, no device
     ({"distributed": True}, ValueError, "RANK expected"),
     ({"n_devices": 0}, ValueError, "n_devices 0 < 1"),
-    ({"merge_streams": 2}, NotImplementedError, "A10")])
+    # stream merging: a count the graph does not have (JAX's words)
+    ({"merge_streams": 11}, ValueError, "merge_pairs must be in 1..9")])
 def test_unported_fit_options_raise(data_yaml, tmp_path, kw, err, match,
                                     monkeypatch):
     monkeypatch.delenv("RANK", raising=False)
@@ -158,11 +160,115 @@ def test_unported_fit_options_raise(data_yaml, tmp_path, kw, err, match,
         fit(_cfg(data_yaml, tmp_path, **kw))
 
 
-@pytest.mark.parametrize("flag", [["--evolve", "3"], ["--merge-streams", "2"]])
-def test_unported_cli_flags_raise(data_yaml, flag):
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli_train.main(["--cfg", "zoo:tiny", "--data", str(data_yaml),
-                        "--device", "cpu", *flag])
+def _jax_forward_of(ckpt, rgb, ir):
+    """The JAX package's unmerged tiny model on a checkpoint's inference
+    variables (its own loader), decoded predictions."""
+    import jax.numpy as jnp
+
+    from icafusion_tpu.models import zoo as jax_zoo
+    from icafusion_tpu.models.assembler import build_model as jax_build
+    from icafusion_tpu.utils.checkpoint import load_inference_variables
+    v = load_inference_variables(str(ckpt))
+    return np.asarray(jax_build(jax_zoo.tiny_icafusion_config(nc=3)).apply(
+        v, jnp.asarray(rgb), jnp.asarray(ir), train=False, decode=True)[0])
+
+
+def _port_forward_of(ckpt, rgb, ir):
+    from icafusion_tpu_torch.cli._common import load_model_for_inference
+    from torch_port_common import nchw
+    _, model = load_model_for_inference("zoo:tiny", str(ckpt))
+    with torch.no_grad():
+        return model(nchw(rgb), nchw(ir)).numpy()
+
+
+def test_fit_merge_streams_matches_the_unmerged_run(data_yaml, tmp_path):
+    """fit(merge_streams=2) trains the merged graph from the same seeded
+    init as the unmerged run: its epoch's losses equal the unmerged run's
+    (1e-4), its checkpoints hold the standard layout (the unmerged keys,
+    values within 1e-4 of the unmerged run's), last.ckpt resumes into an
+    unmerged Trainer, and the stripped weights load into the JAX package's
+    unmerged model, which predicts what the port's does (1e-4)."""
+    from icafusion_tpu_torch.models.assembler import build_model
+    from icafusion_tpu_torch.train.trainer import Trainer
+    from icafusion_tpu_torch.utils.checkpoint import restore_train_state
+    plain = Path(fit(_cfg(data_yaml, tmp_path, name="plain"))["run_dir"])
+    merged = Path(fit(_cfg(data_yaml, tmp_path, name="merged",
+                           merge_streams=2))["run_dir"])
+    a, b = _rows(plain)[1], _rows(merged)[1]
+    np.testing.assert_allclose([float(x) for x in b[1:4]],
+                               [float(x) for x in a[1:4]], atol=1e-4)
+    want = load_checkpoint(plain / "weights" / "last.ckpt")
+    got = load_checkpoint(merged / "weights" / "last.ckpt")
+    assert "m0" in got["params"] and "m0_9" not in got["params"]
+    for k in ("params", "batch_stats", "opt_momentum", "ema_tree"):
+        flat_w = dict(_flat(want[k]))
+        flat_g = dict(_flat(got[k]))
+        assert flat_g.keys() == flat_w.keys(), k
+        for p, w in flat_w.items():
+            np.testing.assert_allclose(flat_g[p], w, atol=1e-4,
+                                       err_msg=f"{k}/{p}")
+    tr = Trainer(build_model(tiny_icafusion_config(nc=3)), load_hyp_config(),
+                 1, 2, 4, imgsz=64, device="cpu")
+    restore_train_state(got, tr)
+    assert tr.opt.step == got["opt_step"] == 2
+    rng = np.random.default_rng(0)
+    rgb, ir = (rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+               for _ in range(2))
+    stripped = merged / "weights" / "stripped.ckpt"
+    np.testing.assert_allclose(_port_forward_of(stripped, rgb, ir),
+                               _jax_forward_of(stripped, rgb, ir),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v, np.float32)
+
+
+@pytest.mark.parametrize("flag", [["--evolve", "2"], ["--merge-streams", "2"]])
+def test_unported_cli_flags_raise(data_yaml, tmp_path, flag):
+    """The two flags the CLI refused before they were ported, now run
+    against the JAX package. --evolve 2 --epochs 1: two generations write
+    <project>/evolve.csv, byte-equal to the log JAX's evolve() writes when
+    fed the port's fitness values (so every candidate is JAX's), and
+    hyp_evolved.yaml holds the best of them, JAX's best. --merge-streams 2
+    trains the merged graph, and its checkpoint serves in the JAX
+    package's unmerged model as in the port's (1e-4)."""
+    import yaml
+
+    project = tmp_path / "p"
+    out = cli_train.main(["--cfg", "zoo:tiny", "--data", str(data_yaml),
+                          "--epochs", "1", "--batch-size", "4",
+                          "--img-size", "64", "--project", str(project),
+                          "--device", "cpu", "--workers", "2",
+                          "--warmup-min", "2", *flag])
+    if flag[0] == "--evolve":
+        from icafusion_tpu.config import HypConfig as JaxHyp
+        from icafusion_tpu.train.evolve import evolve as jax_evolve
+        log = (project / "evolve.csv").read_text().splitlines()
+        assert len(log) == 3                   # the header and two rows
+        fits = [float(r.split(",")[0]) for r in log[1:]]
+        jlog = tmp_path / "jax_evolve.csv"
+        best = jax_evolve(lambda h: fits.pop(0), JaxHyp(), generations=2,
+                          log_path=str(jlog), seed=0)
+        assert (project / "evolve.csv").read_text() == jlog.read_text()
+        assert out.as_dict() == best.as_dict()
+        assert yaml.safe_load((project / "hyp_evolved.yaml").read_text()
+                              ) == best.as_dict()
+        assert len(list(project.glob("exp_evolve*"))) == 2
+        return
+    run = Path(out["run_dir"])
+    ckpt = run / "weights" / "last.ckpt"
+    assert "m0_9" not in load_checkpoint(ckpt)["params"]
+    rng = np.random.default_rng(1)
+    rgb, ir = (rng.uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
+               for _ in range(2))
+    np.testing.assert_allclose(_port_forward_of(ckpt, rgb, ir),
+                               _jax_forward_of(ckpt, rgb, ir), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_epoch_meter_is_the_mean():

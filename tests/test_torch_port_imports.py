@@ -35,8 +35,11 @@ export = ("export", "export.onnx_proto", "export.onnx_numpy",
           "export.onnx_export", "cli.export", "models.gradcam",
           "models.ensemble", "kernels.ops")
 assert all("icafusion_tpu_torch." + t in names for t in export), names
+last = ("utils.stream_merge", "train.evolve", "utils.profiling",
+        "data.tools")
+assert all("icafusion_tpu_torch." + t in names for t in last), names
 smoke = ("common", "train", "val", "int8", "serve", "configs", "parallel",
-         "reference", "export")
+         "reference", "export", "merge")
 assert all("icafusion_tpu_torch.smoke." + t in names for t in smoke), names
 import chip_smoke, port_probes
 bad = sorted(m for m in sys.modules

@@ -2,7 +2,8 @@
 merge-NMS, batched_nms and detections_to_records; ServingEngine._dispatch
 at each bucket, predict_paths (pipelined and serial), warmup and
 throughput; decode_letterbox_batch; the MicroBatcher; the HTTP server,
-batched and not; the hub. Model weights are one flax variable tree carried
+batched and not; the hub; stream merging in the engine and the server.
+Model weights are one flax variable tree carried
 across with load_jax_variables; the JAX engine gets the port's letterboxed
 uint8 arrays, so both see the same pixels (the JAX package decodes files
 with its own C++ library).
@@ -225,15 +226,36 @@ def test_predict_paths_matches_jax_on_the_same_arrays(engines, jpeg_pairs,
         np.testing.assert_array_equal(a, b)
 
 
-def test_warmup_throughput_and_unported_options(engines):
+@pytest.fixture(scope="module")
+def merged_jax():
+    """(the engines' flax variables, a JAX engine over them at
+    merge_streams=2)."""
+    jmodel = jax_build_model(jax_zoo.tiny_icafusion_config())
+    x = jnp.zeros((1, *CANVAS, 3), jnp.float32)
+    v = random_variables(jmodel, x, x, train=False, seed=1)
+    return v, JaxServingEngine(model=jmodel, variables=v, n_devices=1,
+                               dtype="float32", merge_streams=2, **ENGINE_KW)
+
+
+def test_warmup_throughput_and_unported_options(engines, merged_jax):
+    """warmup, throughput; merge_streams 0 and "auto" serve unmerged (auto
+    is 0 in the port), and merge_streams=2 (refused before stream merging
+    was ported) serves the merged graph as the JAX engine at 2 does."""
     engine, _ = engines
     engine.warmup()
     assert engine.throughput(iters=2) > 0
     model = build_model(zoo.tiny_icafusion_config())
     for merge in (0, "auto"):
-        ServingEngine(model, 64, 1, device="cpu", merge_streams=merge)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServingEngine(model, 64, 1, device="cpu", merge_streams=2)
+        assert ServingEngine(model, 64, 1, device="cpu",
+                             merge_streams=merge).merge_streams == 0
+    merged = ServingEngine(engine._float_model, dtype="float32",
+                           device="cpu", merge_streams=2, **ENGINE_KW)
+    assert merged.model.merge_pairs == 2
+    rgb, ir = _pairs(3, seed=11)
+    got = merged.predict_arrays(rgb, ir)
+    assert sum(len(g) for g in got) > 0
+    assert_dets_close(got, merged_jax[1].predict_arrays(rgb, ir))
+    assert_dets_close(got, engine.predict_arrays(rgb, ir))
     # int8 serving (A9) works: a copy quantizes on one batch and serves
     q = ServingEngine(engine._float_model, CANVAS, 2, dtype="float32",
                       device="cpu")
@@ -401,16 +423,35 @@ def test_http_bad_body_and_unknown_path(server):
     assert _request(port, "GET", "/nope")[0] == 404
 
 
-def test_http_cli_refuses_what_is_not_ported(tmp_path):
-    base = ["--weights", str(tmp_path / "w.ckpt"), "--cfg", "zoo:tiny",
-            "--device", "cpu"]
+def test_http_cli_refuses_what_is_not_ported(tmp_path, merged_jax):
+    """The server's flags; --merge 2 (refused before stream merging was
+    ported) builds a merged engine that serves as the JAX engine at
+    merge_streams=2 does, and --merge auto an unmerged one."""
+    v, jax_engine = merged_jax
+    ckpt = tmp_path / "w.ckpt"
+    ckpt.write_bytes(msgpack_serialize({**v, "meta": {"epoch": 0}}))
+    base = ["--weights", str(ckpt), "--cfg", "zoo:tiny", "--device", "cpu"]
     args = http_server.parse_args(base + ["--int8", "--calib-rgb", "a",
                                           "--calib-ir", "b"])
     assert args.int8 and (args.calib_rgb, args.calib_ir) == ("a", "b")
-    with pytest.raises(NotImplementedError, match="A10"):
-        http_server.build(http_server.parse_args(base + ["--merge", "3"]))
     args = http_server.parse_args(base + ["--img-size", "512x640"])
     assert args.img_size == (512, 640)
+    built = {}
+    for merge in ("auto", "2"):
+        built[merge], batcher = http_server.build(http_server.parse_args(
+            base + ["--img-size", "64x96", "--batch-size", "4",
+                    "--merge", merge]))
+        batcher.close()
+    assert built["auto"].merge_streams == built["auto"].model.merge_pairs == 0
+    assert built["2"].merge_streams == built["2"].model.merge_pairs == 2
+    # the server serves bf16; its merged float32 model, in an fp32 engine
+    merged = ServingEngine(built["2"]._float_model, dtype="float32",
+                           device="cpu", **ENGINE_KW)
+    assert merged.merge_streams == 2
+    rgb, ir = _pairs(2, seed=12)
+    got = merged.predict_arrays(rgb, ir)
+    assert sum(len(g) for g in got) > 0
+    assert_dets_close(got, jax_engine.predict_arrays(rgb, ir))
 
 
 # ---- hub -----------------------------------------------------------------

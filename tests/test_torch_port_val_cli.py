@@ -2,8 +2,8 @@
 study) and the dumps and suites (--rect, --save-txt, --save-json,
 --coco-gt, --kaist-ann, --confusion, --augment), on a tiny synthetic set
 with a checkpoint the port wrote; --int8 with its persisted calibration;
-the flags that are not ported raise with their ROADMAP items, and without
-a card the CLI needs --device cpu."""
+--merge against the JAX package's cli.val; and without a card the CLI
+needs --device cpu."""
 
 import json
 import sys
@@ -87,10 +87,27 @@ def test_speed_augment_and_study(setup, tmp_path):
     assert (tmp_path / "study" / "study.png").is_file()
 
 
-@pytest.mark.parametrize("extra,item", [(["--merge", "2"], "A10")])
-def test_unported_flags_raise(setup, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        val.main(_args(setup, tmp_path, *extra))
+@pytest.mark.parametrize("extra,item", [(["--merge", "2"], "merge")])
+def test_unported_flags_raise(setup, tmp_path, extra, item, monkeypatch):
+    """--merge 2, which the CLI refused before stream merging was ported:
+    the merged graph scores what the unmerged one scores, and what the JAX
+    package's cli.val --merge 2 scores on the same checkpoint (P, R,
+    mAP@50 and mAP within 1e-6), the JAX loader decoding with cv2 as the
+    port does (its C++ decoder rounds differently)."""
+    from icafusion_tpu.cli import val as jax_val
+    from icafusion_tpu.data import native
+    monkeypatch.setattr(native, "available", lambda: False)
+    got = val.main(_args(setup, tmp_path / item, *extra))
+    plain = val.main(_args(setup, tmp_path / "plain"))
+    data, ckpt = setup[:2]
+    want = jax_val.main(["--weights", str(ckpt), "--cfg", "zoo:tiny",
+                         "--data", str(data), "--img-size", "64",
+                         "--batch-size", "2", "--save-dir",
+                         str(tmp_path / "jax"), *extra])
+    assert got["seen"] == want["seen"] == 3
+    for k in ("mp", "mr", "map50", "map"):
+        assert got[k] == pytest.approx(plain[k], abs=1e-6), k
+        assert got[k] == pytest.approx(want[k], abs=1e-6), k
 
 
 def test_int8_calibrates_then_loads_the_persisted_calibration(setup, tmp_path,
