@@ -94,15 +94,20 @@ exit code is non-zero and the final line is never printed:
    (and NCHW input at B = 4): int32 accumulators equal, outputs within
    1e-5 (fp32) and 3e-2 (bf16) of the largest, timed beside the bound,
    the plain version, a cuDNN bf16 conv and, for 1x1, torch._int_mm, with
-   the path each class takes (kernels/conv_int8.py: plan);
+   the path each class takes (kernels/conv_int8.py: plan); then the stem
+   path's classes (yolov5l's stem, the merged stem of Cin 6, a stem on a
+   ragged map) at B = 1, 4 and 32, fp32 and bf16, channels_last and NCHW,
+   each checked and timed the same way;
    (b) the flagship engine (phase 4b's weights) quantized by
    ServingEngine.quantize on two seeded batches, three counted requests
    (162 int8 launches a forward, 3 attention, 1 NMS, 0 fused convs),
    every int8 conv of a forward held to the plain version on its own
-   input, each class's input layout and path (all but the stems on the
-   tma path from a channels_last map, asserted), the summed time beside
-   the first design's and cuDNN's, and device busy beside the bf16
-   engine's; (c)
+   input, each class's input layout and path (the two stems on the stem
+   path, every other conv on the tma path from a channels_last map, none
+   on the first design's direct path: asserted), the summed time beside
+   the first design's, the stems-on-the-first-design sum's and cuDNN's,
+   and device busy beside the
+   bf16 engine's; (c)
    cli.val --int8 on
    trained s640 (extval, fp32) within 0.3 mAP@50 points of the JAX int8
    record and of 7a, the same calibration served in bf16 (printed), and
@@ -156,10 +161,12 @@ exit code is non-zero and the final line is never printed:
    n320 at Detect's inputs and at layer 4 (through the attention's and
    the fused conv's autograd paths), card against CPU within 1e-3; (f)
    the kitchen-sink graph quantized (its depthwise Ghost convs on the
-   int8 conv's grouped direct path) and a depthwise 64 -> 64 3x3 Conv:
-   every grouped int8 conv's int32 accumulators equal the plain version's
-   at B = 1, 4 and 32, the grouped path timed beside cuDNN's bf16 grouped
-   conv; (g) an ensemble of two seeded yolov5n members on the card, its
+   int8 conv's grouped path) and a depthwise 64 -> 64 3x3 Conv: every
+   grouped int8 conv's int32 accumulators equal the plain version's at
+   B = 1, 4 and 32; then the depthwise 64 -> 64 3x3 and the four grouped
+   classes of the CPU tests at (B, C, 160, 160), B = 1, 4 and 32:
+   accumulators exact, each timed beside its bound, the plain version and
+   cuDNN's bf16 grouped conv; (g) an ensemble of two seeded yolov5n members on the card, its
    candidates each member's own;
 15. stream merging, evolution and profiling (smoke/merge.py): (a) the
    flagship (phase 4b's weights) served at 640, batch 4, merged at 3
@@ -185,8 +192,8 @@ The phase bodies live in icafusion_tpu_torch/smoke/ (one module a group
 of phases); this script keeps the order, the names and the summary lines.
 Before the last line it prints one JSON object with each kernel's launches
 on the main path (phases 4b, 8, 10a, 12, 13a-13c, 14 and 15's merged
-runs; the int8 conv's in 11b, 12d, 14c/14f and 15a/15b, and its grouped
-path's in 14f), error,
+runs; the int8 conv's in 11b, 12d, 14c/14f and 15a/15b, its stem path's
+and its grouped path's in the same runs), error,
 device times (kernel, plain version and library yardstick, from
 torch.profiler) and bound; the
 last line is {"ok": true, "device": {...}}. Should the profiler record no
@@ -245,8 +252,8 @@ def main(argv=None) -> int:
     from icafusion_tpu_torch.utils.convert import load_jax_variables
     from icafusion_tpu_torch.smoke.common import (
         ATTN_RAGGED, ATTN_SHAPES, ATTN_SHIPPED, BATCH, BUCKETS,
-        CONVS_PER_FORWARD, CONV_SHAPES, HEADS, MAP50_GATE, PROFILER,
-        STEADY_REQUESTS, attention_bound, attention_case, attention_library,
+        CONVS_PER_FORWARD, CONV_SHAPES, HEADS, INT8_PATH_KEYS, MAP50_GATE,
+        PROFILER, STEADY_REQUESTS, attention_bound, attention_case, attention_library,
         both_ms, bound, check_pool_grads, conv_bound, conv_case, conv_library,
         cuda_ms, device_times, done, matched, nms_case, phase,
         profile_requests)
@@ -626,8 +633,10 @@ def main(argv=None) -> int:
     train_families_card_vs_cpu()
     done(t0)
 
-    report["conv_int8_bn_act"], int8 = int8_slice(card, s640_fp32_map50)
-    launches["conv_int8_bn_act"] = int8["conv_int8_bn_act"]
+    (report["conv_int8_bn_act"], report["conv_int8_bn_act (stem)"],
+     int8) = int8_slice(card, s640_fp32_map50)
+    for k in ("conv_int8_bn_act", *INT8_PATH_KEYS.values()):
+        launches[k] = int8[k]
 
     par = parallel_slice(card, data_yaml, runs, fit_rows, n320, val, p5)
     launches = {k: v + par.get(k, 0) for k, v in launches.items()}
@@ -641,15 +650,16 @@ def main(argv=None) -> int:
         report["conv_int8_bn_act (grouped)"], exp = export_slice(card,
                                                                  Path(tmp))
     launches = {k: v + exp.get(k, 0) for k, v in launches.items()}
-    launches["conv_int8_bn_act (grouped)"] = exp["conv_int8_bn_act (grouped)"]
-    assert launches["conv_int8_bn_act (grouped)"] > 0, launches
 
     with tempfile.TemporaryDirectory() as tmp:
         merged = merge_slice(card, data_yaml, Path(tmp))
     train_tmp.cleanup()
-    for k in ("dual_cross_attention", "greedy_nms", "conv_int8_bn_act"):
+    for k in ("dual_cross_attention", "greedy_nms", "conv_int8_bn_act",
+              "conv_int8_bn_act (stem)"):
         assert merged[k] > 0, merged
     launches = {k: v + merged.get(k, 0) for k, v in launches.items()}
+    for k in INT8_PATH_KEYS.values():
+        assert launches[k] > 0, launches
 
     kernels = []
     for name, src, tpu in (
@@ -663,10 +673,14 @@ def main(argv=None) -> int:
             # no Pallas kernel: XLA's int8 conv of Conv._int8_conv
             ("conv_int8_bn_act", "icafusion_tpu_torch/csrc/conv_int8.cu",
              "icafusion_tpu/nn/layers.py:172"),
-            # its direct path with groups (feature_group_count there)
+            # its stem path (the same conv at Cin 3 and 6)
+            ("conv_int8_bn_act (stem)",
+             "icafusion_tpu_torch/csrc/conv_int8_small.cu",
+             "icafusion_tpu/nn/layers.py:172"),
+            # its grouped path (feature_group_count there)
             ("conv_int8_bn_act (grouped)",
-             "icafusion_tpu_torch/csrc/conv_int8.cu",
-             "icafusion_tpu/nn/layers.py:172")):
+             "icafusion_tpu_torch/csrc/conv_int8_small.cu",
+             "icafusion_tpu/nn/layers.py:175")):
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -30,8 +30,11 @@
 // byte-bound. So the input must be read and quantized about once, and the
 // products must run on wgmma.
 //
-// Two paths; kernels/conv_int8.py: plan() picks one from dtype, strides,
-// Cin and Cout, and the wrapper launches it or raises.
+// Four paths; kernels/conv_int8.py: plan() picks one from dtype, strides,
+// groups, Cin and Cout, and the wrapper launches it or raises. Two are
+// here, "tma" and "direct"; "stem" (dense convs with Cin % 16 != 0: the
+// stems) and "grouped" (groups > 1) are in conv_int8_small.cu. The
+// arithmetic all four share is in conv_int8.cuh.
 //
 // "tma" (conv_int8_tma_kernel), the serving path: x bf16 or fp32 with its
 // channels innermost and 16-byte pixel strides (channels_last, or a
@@ -78,15 +81,17 @@
 //   Two blocks share an SM where shared memory allows (96 registers a
 //   thread; -Xptxas -v in chip_smoke.py phase 1 reports each variant).
 //
-// "direct" (conv_int8_kernel), the first design, kept for the 3-channel stem
-// (K = 108: its channel rows are 6 bytes), NCHW and other strides,
-// Cin % 16 != 0, Cout % 8 != 0 and grouped convs: an implicit GEMM, M =
+// "direct" (conv_int8_kernel), the first design, kept for what the other
+// three do not take: NCHW or misaligned maps with Cin >= 16, strides other
+// than 1 or 2, Cout % 8 != 0, and grouped convs with kw outside {1, 3, 5,
+// 7} or a group of more than 256 channels: an implicit GEMM, M =
 // B*Ho*Wo output pixels, N = Cout, K = kh*kw*Cin_g in (ky, kx, ci) order
 // (w8's own order, so B rows are w8's rows). With g groups, Cin_g = Cin / g
 // and output channel co reads input channels [(co / Cout_g) * Cin_g, ... +
 // Cin_g), Cout_g = Cout / g: a block's 128 output channels lie in one group
 // (blockIdx.y counts ceil(Cout_g / 128) tiles a group), so a depthwise conv
-// uses one of its 128 columns. Simple and exact, not fast. A block computes a 64-pixel x 128-channel tile
+// uses one of its 128 columns. Simple and exact, not fast. A block
+// computes a 64-pixel x 128-channel tile
 // with 8 warps (2 x 4, 32 x 32 each: 2 x 4 m16n8k32 tiles), stepping K by
 // 64 bytes through two shared-memory buffers: the global loads of step k+1
 // are issued before the products of step k and stored (A quantized on the
@@ -101,11 +106,13 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "conv_int8.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace icaf_int8;
 
 constexpr int kBM = 64;           // output pixels a block
 constexpr int kBN = 128;          // output channels a block
@@ -135,44 +142,9 @@ struct Params {
   int act;                       // 1: SiLU, 0: identity
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ int quantize(float v, float s) {
-  const int q = __float2int_rn(__fdiv_rn(v, s));
-  return min(max(q, -127), 127);
-}
-
-// quantize(v[e], s(e)) of N values, without a division where none is
-// needed. r(e) = rn(1 / s(e)) and y = rn(v * r) lie within 2^-23 |v / s| of
-// v / s, and rn(v / s) within 2^-24 |v / s|: for |y| < 256 the two are
-// less than 4.6e-5 apart, so where y is more than 1e-4 from the nearest
-// half-integer they round (half to even) to the same integer; for larger
-// |y| both clamp to the same end. The N products are rounded together,
-// with no branch between them; then the IEEE division decides each value
-// that is near a half-integer (or NaN). Bit for bit quantize(v, s). bf16
-// inputs and their absmax scales land near half-integers far more often
-// than smooth values would, so the division runs for those values alone.
-template <int N, typename S, typename R>
-__device__ __forceinline__ void quantize_n(const float (&v)[N], S s, R r,
-                                           int (&q)[N]) {
-  bool near[N];
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    const float y = __fmul_rn(v[e], r(e));
-    const float yr = rintf(y);
-    near[e] = !(fabsf(y - yr) < 0.4999f);
-    q[e] = __float2int_rn(fminf(fmaxf(yr, -127.f), 127.f));
-  }
-#pragma unroll
-  for (int e = 0; e < N; ++e)
-    if (near[e]) q[e] = quantize(v[e], s(e));
 }
 
 template <typename T, bool kEpilogue>
@@ -400,57 +372,6 @@ struct Params {
   // shared memory, from the 1 KB-aligned base: weight ring at 0
   uint32_t off_q, chunk_bytes, copy_bytes, off_ep, off_bar;
 };
-
-// 8 consecutive channels of x at src (16-byte aligned) as raw words, one
-// uint4 for bf16 and two for fp32; zeros where !ok (the conv's padding).
-template <typename T>
-struct Raw8 {
-  static constexpr int kWords = sizeof(T) / 2;
-  uint4 w[kWords];
-};
-template <typename T>
-__device__ __forceinline__ void load8(const T* src, bool ok, Raw8<T>& r) {
-#pragma unroll
-  for (int i = 0; i < Raw8<T>::kWords; ++i)
-    r.w[i] = ok ? __ldg(reinterpret_cast<const uint4*>(src) + i)
-                : make_uint4(0, 0, 0, 0);
-}
-__device__ __forceinline__ void unpack8(const Raw8<__nv_bfloat16>& r,
-                                        float (&v)[8]) {
-  const uint32_t u[4] = {r.w[0].x, r.w[0].y, r.w[0].z, r.w[0].w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(u[i] << 16);
-    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack8(const Raw8<float>& r, float (&v)[8]) {
-  const uint4 (&w)[2] = r.w;
-  v[0] = __uint_as_float(w[0].x); v[1] = __uint_as_float(w[0].y);
-  v[2] = __uint_as_float(w[0].z); v[3] = __uint_as_float(w[0].w);
-  v[4] = __uint_as_float(w[1].x); v[5] = __uint_as_float(w[1].y);
-  v[6] = __uint_as_float(w[1].z); v[7] = __uint_as_float(w[1].w);
-}
-
-// 8 values quantized (quantize_n) and packed into two words.
-__device__ __forceinline__ void quantize8(const float (&v)[8],
-                                          const float (&s)[8],
-                                          const float (&r)[8],
-                                          uint32_t (&q8)[2]) {
-  int q[8];
-  quantize_n(v, [&](int e) { return s[e]; }, [&](int e) { return r[e]; }, q);
-  q8[0] = q8[1] = 0u;
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    q8[e >> 2] |= (static_cast<uint32_t>(q[e]) & 0xffu) << ((e & 3) * 8);
-}
-
-__device__ __forceinline__ float epilogue(int acc, float mult, float add,
-                                          int act) {
-  float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), mult), add);
-  if (act) y = __fdiv_rn(y, __fadd_rn(1.f, expf(-y)));
-  return y;
-}
 
 // The warp's 16 accumulator rows (pixels pix[0] for rows qg, pix[1] for
 // qg + 8; -1 where dropped) of one 128-channel tile, as 4-byte values

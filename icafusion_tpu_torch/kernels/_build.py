@@ -30,8 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dual_cross_attention.cu", "greedy_nms.cu", "conv3x3_bn_silu.cu",
-           "conv_int8.cu")
-HEADERS = ("hopper.cuh",)   # included by the sources: part of the hash
+           "conv_int8.cu", "conv_int8_small.cu")
+HEADERS = ("hopper.cuh", "conv_int8.cuh")   # included by the sources: part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -64,6 +64,14 @@ SIGNATURES = {
     # (copy_bytes, off_q, off_ep, off_bar, smem); stream
     "icaf_conv_int8_tma": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
                            ctypes.c_float, _P, _P, _P, *(_I,) * 28, _P),
+    # icaf_conv_int8's arguments up to epilogue, then the plan: th, tw, the
+    # grid of persistent blocks, the shared memory a block; stream
+    "icaf_conv_int8_stem": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                            ctypes.c_float, _P, *(_I,) * 20, _P),
+    # icaf_conv_int8's arguments up to groups, then the plan: th, tw,
+    # groups a block, the shared memory a block; stream
+    "icaf_conv_int8_grouped": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P,
+                               _P, ctypes.c_float, _P, *(_I,) * 21, _P),
 }
 
 

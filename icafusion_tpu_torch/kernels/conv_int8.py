@@ -5,8 +5,8 @@ The JAX package runs its int8 conv through XLA, not Pallas
 (``icafusion_tpu/nn/layers.py:154-176``, ``Conv._int8_conv``:
 ``lax.conv_general_dilated`` on int8 operands with an int32 result, then
 ``* s_w``, BatchNorm and the activation). PyTorch has no int8 convolution
-on CUDA, so the port has its own kernel, ``csrc/conv_int8.cu``, with two
-paths that ``plan`` chooses between:
+on CUDA, so the port has its own kernels, ``csrc/conv_int8.cu`` and
+``csrc/conv_int8_small.cu``, with four paths that ``plan`` chooses between:
 
 - ``"tma"``, the serving path: x float32 or bfloat16 with its channels
   innermost (channels_last, or a channels_last view with a 16-byte aligned
@@ -15,10 +15,26 @@ paths that ``plan`` chooses between:
   shared memory and multiplies it with s8 ``wgmma`` against weight tiles
   that stream through a TMA ring; Cout and K are spread over more blocks
   where the output tiles alone leave the card idle (``plan``).
-- ``"direct"``: everything else (the 3-channel stem, NCHW, other strides
-  and grouped convs): an implicit GEMM on ``mma.sync`` m16n8k32 tiles that
-  quantizes x in its operand load; a block's output channels lie in one
-  group.
+- ``"stem"``: groups 1 and ``Cin % 16 != 0`` (the 3-channel stem, the
+  merged stem's 6, Focus's 12) where Cin < 16 (any strides) or the map is
+  laid out as the tma path wants it; stride 1 or 2, ``Cout % 8 == 0``.
+  Persistent blocks walk 128-pixel tiles; each quantizes its window once
+  into shared memory, in x's channels_last byte order, which makes a tap
+  row's operand a contiguous run of it: ``mma.sync`` m16n8k32 reads A from
+  the window itself (no im2col), 4 bytes at a time from any offset,
+  against weights resident in shared memory (each tap row in groups of 4
+  bytes, zeros past its end, the groups packed 8 to a k32 step); the next
+  tile's window is loaded while the current one computes and is stored.
+- ``"grouped"``: every conv with groups > 1 at stride 1 or 2 and kw 1, 3,
+  5 or 7. A block owns a tile of pixels and a chunk of whole groups,
+  quantizes the chunk's window once, and accumulates exactly in int32 on
+  the CUDA cores (a depthwise conv is bytes-bound: tensor cores buy
+  nothing there).
+- ``"direct"``, the first design: everything else (NCHW or misaligned maps
+  with Cin >= 16, strides other than 1 or 2, ``Cout % 8 != 0``, grouped
+  convs with another kw or a group of more than 256 channels): an implicit
+  GEMM on ``mma.sync`` m16n8k32 tiles that quantizes x in its operand
+  load; a block's output channels lie in one group.
 
 ``conv_int8_bn_act`` launches the kernel on CUDA tensors and runs
 ``conv_int8_bn_act_reference``, the plain PyTorch version, on CPU tensors
@@ -120,10 +136,133 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# The "stem" and "grouped" paths (csrc/conv_int8_small.cu). Their entries
+# lay out a block's shared memory themselves and refuse a launch whose
+# ``shared`` bytes (stem_smem, grouped_smem: the stage sized for 4-byte
+# elements) do not hold it.
+STEM_THREADS = 256        # stem: threads a block
+STEM_BLOCKS = 2           # stem: blocks an SM (its registers allow two)
+STEM_SLOTS = 128          # stem: output pixels a tile (8 warps x 16 rows)
+STEM_NC = 64              # stem: output channels a pass and a stage
+STEM_ITEMS = 24           # stem: window values a thread loads ahead
+SMALL_THREADS = 256       # grouped: threads a block
+GROUPED_SLOTS = 128       # grouped: output pixels a tile at most
+GROUPED_R = 4             # grouped: pixels a thread accumulates in a row
+GROUPED_KW = (1, 3, 5, 7)
+GROUPED_COUT = 64         # grouped: output channels a block (whole groups)
+
+
+def _r16(v: int) -> int:
+    return _cdiv(v, 16) * 16
+
+
+def _window(tile: Tuple[int, int], kh: int, kw: int, s: int):
+    th, tw = tile
+    return (th - 1) * s + kh, (tw - 1) * s + kw
+
+
+def stem_steps(Cin: int, kh: int, kw: int) -> int:
+    """k32 steps of the stem's products: each tap row's kw * Cin bytes in
+    groups of 4, the kh rows' groups packed 8 to a step."""
+    return _cdiv(kh * _cdiv(kw * Cin, 4), 8)
+
+
+def stem_smem(Cin: int, Cout: int, kh: int, kw: int, s: int,
+              tile: Tuple[int, int]) -> int:
+    """A "stem" block's shared memory: mult/add, the weights (Cout rows of
+    stem_steps k32 steps, 16 bytes of pitch pad), the steps' window
+    offsets, the int8 window (rows of hw * Cin bytes in 16-byte pitches,
+    64 bytes of slack) and the stage (STEM_SLOTS pixels of STEM_NC + 8
+    channels)."""
+    hh, hw = _window(tile, kh, kw, s)
+    steps = stem_steps(Cin, kh, kw)
+    return (_r16(8 * Cout) + _r16(Cout * (steps * 32 + 16)) + steps * 32
+            + _r16(hh * _r16(hw * Cin) + 64)
+            + STEM_SLOTS * (STEM_NC + 8) * 4)
+
+
+def stem_items(Cin: int, kh: int, kw: int, s: int,
+               tile: Tuple[int, int]) -> int:
+    """Window values a "stem" thread loads a tile: STEM_THREADS // Cin
+    pixels a pass, one channel a thread."""
+    hh, hw = _window(tile, kh, kw, s)
+    return _cdiv(hh * hw, STEM_THREADS // Cin)
+
+
+def _stem_tile(Ho, Wo, Cin, Cout, kh, kw, s):
+    """(th, tw) with th * tw <= STEM_SLOTS, a thread's window values within
+    STEM_ITEMS and the shared memory within SMEM_MAX: the fewest tiles,
+    then the least window, then rows that hold whole 16-pixel mma runs,
+    then the widest; None where none fits."""
+    if Cin > STEM_THREADS:
+        return None
+    best = None
+    for tw in range(1, min(Wo, STEM_SLOTS) + 1):
+        th = min(Ho, STEM_SLOTS // tw)
+        while th and (stem_items(Cin, kh, kw, s, (th, tw)) > STEM_ITEMS
+                      or stem_smem(Cin, Cout, kh, kw, s, (th, tw))
+                      > SMEM_MAX):
+            th -= 1
+        if not th:
+            continue
+        hh, hw = _window((th, tw), kh, kw, s)
+        n = _cdiv(Ho, th) * _cdiv(Wo, tw)
+        key = (n, n * hh * hw, tw % 16 != 0, -tw)
+        if best is None or key < best[0]:
+            best = (key, th, tw)
+    return None if best is None else best[1:]
+
+
+def grouped_chunk(Cin_g: int, Cout_g: int, groups: int) -> int:
+    """Groups a "grouped" block owns: as many whole groups as keep it
+    within GROUPED_COUT output channels (one at least) and SMALL_THREADS
+    input channels."""
+    return max(1, min(groups, GROUPED_COUT // Cout_g,
+                      SMALL_THREADS // Cin_g))
+
+
+def grouped_smem(Cin_g: int, Cout_g: int, kh: int, kw: int, s: int,
+                 tile: Tuple[int, int], gpc: int) -> int:
+    """A "grouped" block's shared memory: mult/add, the weights (kh * kw *
+    Cin_g x the chunk's output channels), the int8 window of the chunk's
+    input channels and the stage (th * tw pixels)."""
+    hh, hw = _window(tile, kh, kw, s)
+    cinb, coutb = gpc * Cin_g, gpc * Cout_g
+    return (_r16(8 * coutb) + _r16(kh * kw * Cin_g * coutb)
+            + _r16(hh * hw * cinb) + tile[0] * tile[1] * _r16(4 * coutb))
+
+
+def _grouped_tile(Ho, Wo, Cin_g, Cout_g, kh, kw, s, gpc):
+    """(th, tw), tw a multiple of GROUPED_R, th * tw <= GROUPED_SLOTS,
+    within SMEM_MAX: the fewest tiles, then the least window, then the
+    widest; None where none fits."""
+    best = None
+    step = GROUPED_R
+    for tw in range(step, min(_cdiv(Wo, step) * step, GROUPED_SLOTS) + 1,
+                    step):
+        th = min(Ho, GROUPED_SLOTS // tw)
+        while th and grouped_smem(Cin_g, Cout_g, kh, kw, s, (th, tw),
+                                  gpc) > SMEM_MAX:
+            th -= 1
+        if not th:
+            continue
+        hh, hw = _window((th, tw), kh, kw, s)
+        n = _cdiv(Ho, th) * _cdiv(Wo, tw)
+        key = (n, n * hh * hw, -tw)
+        if best is None or key < best[0]:
+            best = (key, th, tw)
+    return None if best is None else best[1:]
+
+
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How ``conv_int8_bn_act`` launches one conv. ``path`` is "tma" (the
-    serving path) or "direct" (``reason`` says why). For "tma": a block
+    serving path), "stem", "grouped" or "direct" (``reason`` says why the
+    conv takes the path it takes when that is not "tma"). For "stem":
+    persistent blocks (``grid`` of them) walk ``tiles`` output tiles of
+    ``tile`` pixels; for "grouped" a block owns a tile and ``groups``
+    conv groups (``grid`` = tiles x chunks); ``shared`` is either's dynamic
+    shared memory a block. For "tma": a block
     owns ``tile`` = (th, tw) output pixels of one image (its 128 wgmma
     rows; slots past th * tw are computed and dropped) and quantizes their
     input window ``halo`` = (hh, hw) once into shared memory, then
@@ -146,11 +285,12 @@ class Plan:
     chunks: int = 0
     grid: int = 0
     layout: Optional["Layout"] = None
+    shared: int = 0
 
     @property
     def smem(self) -> int:
         """Dynamic shared memory a block (0 on the direct path)."""
-        return self.layout.smem if self.layout else 0
+        return self.layout.smem if self.layout else self.shared
 
 
 def _tile(Ho: int, Wo: int, kh: int, kw: int, sh: int, sw: int):
@@ -230,7 +370,9 @@ def plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int,
     """The launch plan of one conv: x (B, Cin, H, W) of ``dtype`` with
     element ``strides`` (b, c, h, w; channels_last when None) and a
     16-byte aligned start (``aligned``), w8 (Cout, kh, kw, Cin /
-    conv_groups). A grouped conv takes the direct path.
+    conv_groups). A grouped conv takes the "grouped" path, a dense conv
+    with Cin % 16 != 0 the "stem" path (Cin < 16 in any strides, or a map
+    the tma path could read), where their kernels take it.
 
     Split-K (see SPLIT_*): the block's 128-channel output tiles may be
     spread over ``groups`` blocks (each quantizes the same window) and Cin
@@ -242,23 +384,36 @@ def plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int,
     if strides is None:
         strides = (H * W * Cin, 1, W * Cin, Cin)
     direct = lambda why: Plan("direct", why)
-    if conv_groups != 1:
-        return direct("grouped")
     if dtype not in (torch.float32, torch.bfloat16):
         return direct(f"dtype {dtype}")
-    esz = 2 if dtype == torch.bfloat16 else 4
-    if strides[1] != 1:
-        return direct("channels are not innermost (NCHW or other strides)")
-    if any(s * esz % 16 for s in (strides[0], strides[2], strides[3])):
-        return direct("a pixel stride is not a multiple of 16 bytes")
-    if not aligned:
-        return direct("x does not start on 16 bytes")
     if sh != sw or sh not in (1, 2):
         return direct(f"stride {(sh, sw)}")
-    if Cin % 16:
-        return direct(f"Cin {Cin} is not a multiple of 16")
+    if conv_groups != 1:
+        return _grouped_plan(B, Cin, Cout, kh, kw, sh, Ho, Wo, conv_groups)
     if Cout % 8:
         return direct(f"Cout {Cout} is not a multiple of 8")
+    esz = 2 if dtype == torch.bfloat16 else 4
+    if strides[1] != 1:
+        unread = "channels are not innermost (NCHW or other strides)"
+    elif any(s * esz % 16 for s in (strides[0], strides[2], strides[3])):
+        unread = "a pixel stride is not a multiple of 16 bytes"
+    else:
+        unread = None if aligned else "x does not start on 16 bytes"
+    if Cin % 16:
+        if Cin >= 16 and unread:
+            return direct(unread)
+        tile = _stem_tile(Ho, Wo, Cin, Cout, kh, kw, sh)
+        if tile is None:
+            return direct("the stem's window or weights do not fit shared "
+                          "memory")
+        tiles = B * _cdiv(Ho, tile[0]) * _cdiv(Wo, tile[1])
+        smem = stem_smem(Cin, Cout, kh, kw, sh, tile)
+        per_sm = max(1, min(STEM_BLOCKS, SMEM_SM // (smem + 1024)))
+        return Plan("stem", f"Cin {Cin} is not a multiple of 16", tile=tile,
+                    halo=_window(tile, kh, kw, sh), tiles=tiles,
+                    grid=min(tiles, SMS * per_sm), shared=smem)
+    if unread:
+        return direct(unread)
     th, tw = _tile(Ho, Wo, kh, kw, sh, sw)
     hh, hw = (th - 1) * sh + kh, (tw - 1) * sw + kw
     tiles = B * _cdiv(Ho, th) * _cdiv(Wo, tw)
@@ -299,6 +454,27 @@ def plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int,
                 n_per_group=npg, splits=splits,
                 slice_units=units, chunks=chunks,
                 grid=tiles * groups * splits, layout=lay)
+
+
+def _grouped_plan(B, Cin, Cout, kh, kw, s, Ho, Wo, g) -> Plan:
+    """The "grouped" plan of a conv with g groups at stride s (1 or 2), or
+    "direct" where its kernel does not take it."""
+    Cin_g, Cout_g = Cin // g, Cout // g
+    if kw not in GROUPED_KW:
+        return Plan("direct", f"grouped, kw {kw}")
+    if Cin_g > SMALL_THREADS or Cout_g > SMALL_THREADS:
+        return Plan("direct", "grouped, a group of more than "
+                    f"{SMALL_THREADS} channels")
+    gpc = grouped_chunk(Cin_g, Cout_g, g)
+    tile = _grouped_tile(Ho, Wo, Cin_g, Cout_g, kh, kw, s, gpc)
+    if tile is None:
+        return Plan("direct", "grouped, the window does not fit shared "
+                    "memory")
+    tiles = B * _cdiv(Ho, tile[0]) * _cdiv(Wo, tile[1])
+    return Plan("grouped", "grouped", tile=tile,
+                halo=_window(tile, kh, kw, s), tiles=tiles, groups=gpc,
+                grid=tiles * _cdiv(g, gpc),
+                shared=grouped_smem(Cin_g, Cout_g, kh, kw, s, tile, gpc))
 
 
 def plan_for(x: torch.Tensor, w8: torch.Tensor, stride=1, padding=0,
@@ -390,7 +566,8 @@ def launch(x, w8, s_in, s_w, bn: BN, stride, padding, act: bool,
     out = _launch(x, w8, s_in, s_w, bn, stride, padding, act, epilogue, pl,
                   groups)
     conv_int8_bn_act.launches += 1
-    conv_int8_bn_act.grouped_launches += groups > 1
+    conv_int8_bn_act.stem_launches += pl.path == "stem"
+    conv_int8_bn_act.grouped_launches += pl.path == "grouped"
     return out
 
 
@@ -429,6 +606,14 @@ def _launch(x, w8, s_in, s_w, bn: BN, stride, padding, act: bool,
                 pl.slice_units, pl.chunks, pl.b_stages, lay.copy_bytes,
                 lay.off_q, lay.off_ep, lay.off_bar, lay.smem,
                 _build.stream_handle(x.device))
+        elif pl.path == "stem":
+            err = lib.icaf_conv_int8_stem(
+                x.data_ptr(), *x.stride(), *common, *shape, *pl.tile,
+                pl.grid, pl.shared, _build.stream_handle(x.device))
+        elif pl.path == "grouped":
+            err = lib.icaf_conv_int8_grouped(
+                x.data_ptr(), *x.stride(), *common, *shape, groups, *pl.tile,
+                pl.groups, pl.shared, _build.stream_handle(x.device))
         else:
             err = lib.icaf_conv_int8(x.data_ptr(), *x.stride(), *common,
                                      *shape, groups,
@@ -438,4 +623,5 @@ def _launch(x, w8, s_in, s_w, bn: BN, stride, padding, act: bool,
 
 
 conv_int8_bn_act.launches = 0
-conv_int8_bn_act.grouped_launches = 0     # of them, grouped convs
+conv_int8_bn_act.stem_launches = 0        # of them, on the "stem" path
+conv_int8_bn_act.grouped_launches = 0     # of them, on the "grouped" path

@@ -357,10 +357,16 @@ def check_pool_grads(gen: torch.Generator):
           "10x10/s2 (2, 8, 40, 40)")
 
 
+# the int8 conv's launches by path: the keys counted() adds with int8
+INT8_PATH_KEYS = {"stem_launches": "conv_int8_bn_act (stem)",
+                  "grouped_launches": "conv_int8_bn_act (grouped)"}
+
+
 def counted(fn, int8: bool = False):
     """fn() with every wrapper's launch count set to 0 just before it; (its
     result, the launches it made): the three TPU kernels' wrappers, and
-    with int8 the int8 conv's too."""
+    with int8 the int8 conv's too, with its launches on the "stem" and
+    "grouped" paths under INT8_PATH_KEYS' names."""
     from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
     from icafusion_tpu_torch.kernels.cross_attention import dual_cross_attention
     from icafusion_tpu_torch.kernels.nms import greedy_nms
@@ -369,8 +375,15 @@ def counted(fn, int8: bool = False):
         (conv_int8_bn_act,) if int8 else ())
     for w in wrappers:
         w.launches = 0
+    if int8:
+        for attr in INT8_PATH_KEYS:
+            setattr(conv_int8_bn_act, attr, 0)
     out = fn()
-    return out, {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: w.launches for w in wrappers}
+    if int8:
+        launches.update({key: getattr(conv_int8_bn_act, attr)
+                         for attr, key in INT8_PATH_KEYS.items()})
+    return out, launches
 
 
 S640 = REPO / "artifacts" / "trained_s640"

@@ -30,9 +30,16 @@ PT2_TOL = 1e-5           # the loaded program against the eager forward, fp32
 CAM_TOL = 1e-3           # card against CPU saliency (fp32, TF32 off)
 CAM_BACKBONE = 4         # n320: the C3 before layer 6's fused convs
 GROUPED_BATCHES = (1, BATCH, 32)
-# the grouped path's timed class: a depthwise 3x3 64 -> 64 at the serving
-# path's first C3 map (the kitchen sink's own maps are 32 x 32 at most)
+# the grouped path's timed classes (Cin, Cout, k, s, H, W, groups) at the
+# serving path's first C3 map (the kitchen sink's own maps are 32 x 32 at
+# most): the kernels line's depthwise 3x3 64 -> 64 (GROUPED_SHAPE), and
+# the four classes of tests/test_torch_port_int8_grouped.py: depthwise
+# 32 -> 32 3x3, 32 -> 48 3x3 s2 in 2 groups, GhostConv's 16 -> 16 5x5
+# depthwise, 24 -> 48 1x1 in 4 groups
 GROUPED_SHAPE = (64, 64, 3, 1, 160, 160)
+GROUPED_CLASSES = ((*GROUPED_SHAPE, 64), (32, 32, 3, 1, 160, 160, 32),
+                   (32, 48, 3, 2, 160, 160, 2), (16, 16, 5, 1, 160, 160, 16),
+                   (24, 48, 1, 1, 160, 160, 4))
 QDQ_PX = 640             # 14c: trained s640 at its own size
 
 
@@ -278,23 +285,23 @@ def _grouped_convs(model):
             if isinstance(m, Conv) and m.w8 is not None and m.conv.groups > 1}
 
 
-def grouped_case(B: int, gen):
-    """(x, w8, s_in, s_w, bn, stride, padding, groups) of GROUPED_SHAPE,
-    depthwise, bf16 channels_last: s_in x's absmax / 127 (one scalar, as
-    quantize_model gives a grouped conv), random int8 weights, s_w scaling
-    the sums to O(1), a BatchNorm away from identity."""
-    Cin, Cout, k, s, H, W = GROUPED_SHAPE
+def grouped_case(B: int, cls, gen):
+    """(x, w8, s_in, s_w, bn, stride, padding, groups) of class ``cls``
+    (GROUPED_CLASSES), bf16 channels_last: s_in x's absmax / 127 (one
+    scalar, as quantize_model gives a grouped conv), random int8 weights,
+    s_w scaling the sums to O(1), a BatchNorm away from identity."""
+    Cin, Cout, k, s, H, W, g = cls
     rand = lambda *shape: torch.rand(*shape, device=DEV, generator=gen)
     x = torch.randn(B, Cin, H, W, device=DEV, generator=gen)
     x = (x * (0.25 + rand(Cin, 1, 1))).bfloat16().contiguous(
         memory_format=torch.channels_last)
     s_in = (x.float().abs().amax() / 127).reshape(())
-    w8 = torch.randint(-127, 128, (Cout, k, k, 1), device=DEV,
+    w8 = torch.randint(-127, 128, (Cout, k, k, Cin // g), device=DEV,
                        generator=gen, dtype=torch.int8)
-    s_w = (0.5 + rand(Cout)) / (2000 * k)
+    s_w = (0.5 + rand(Cout)) / (2000 * k * (Cin // g) ** 0.5)
     bn = (0.8 + 0.4 * rand(Cout), 0.2 * rand(Cout) - 0.1,
           0.2 * rand(Cout) - 0.1, 0.5 + rand(Cout), 1e-3)
-    return x, w8, s_in, s_w, bn, s, k // 2, Cin
+    return x, w8, s_in, s_w, bn, s, k // 2, g
 
 
 def grouped_slice(total: dict) -> dict:
@@ -302,14 +309,17 @@ def grouped_slice(total: dict) -> dict:
     GhostBottleneck depthwise convs grouped) with phase 13c's grouped
     64 -> 64 3x3 Conv beside it: at B = 1, 4 and 32 every grouped int8
     conv's int32 accumulators on its own input in a card forward equal the
-    plain version's; the grouped path timed at each kitchen-sink class and
-    at GROUPED_SHAPE beside cuDNN's bf16 grouped conv. Returns the kernels
-    line's entry."""
+    plain version's, on the "grouped" path; then each GROUPED_CLASSES
+    class at B = 1, 4 and 32 (bf16, channels_last): accumulators exact,
+    outputs within 3e-2 of the largest, timed (queued_ms) beside its
+    bound, the plain version and cuDNN's bf16 grouped conv + SiLU. Returns
+    the kernels line's entry (GROUPED_SHAPE at B = 4)."""
     import torch.nn.functional as F
     from icafusion_tpu_torch.kernels.conv_int8 import (
         conv_int8_bn_act, conv_int8_bn_act_reference, fold_epilogue, plan_for)
     from icafusion_tpu_torch.models.assembler import build_model
     from icafusion_tpu_torch.nn.layers import Conv
+    from icafusion_tpu_torch.smoke.int8 import plan_text
     from icafusion_tpu_torch.smoke.reference import (SINK_PX,
                                                      kitchen_sink_config)
     from icafusion_tpu_torch.utils.quantize import calibrate, quantize_model
@@ -328,15 +338,12 @@ def grouped_slice(total: dict) -> dict:
     hooks = [m.register_forward_pre_hook(
         lambda mod, a, n=n: seen.__setitem__(n, a[0]))
         for n, m in grouped.items()]
-    shapes = {}
     for B in GROUPED_BATCHES:
         seen.clear()
         x, y = (torch.from_numpy(a).to(DEV).permute(0, 3, 1, 2)
                 for a in pair(B))
         with torch.inference_mode():
-            conv_int8_bn_act.grouped_launches = 0
             _, launches = counted(lambda: model(x, y), int8=True)
-            grouped_n = conv_int8_bn_act.grouped_launches
             seen["dw64"] = torch.randn(B, 64, 40, 40, device=DEV)
             dw(seen["dw64"])
             for n, inp in seen.items():
@@ -348,67 +355,60 @@ def grouped_slice(total: dict) -> dict:
                 ref = conv_int8_bn_act_reference(*a, epilogue=False,
                                                  groups=m.conv.groups)
                 assert torch.equal(acc, ref), (n, B)
-                assert plan_for(inp, m.w8, *a[5:], m.conv.groups).reason \
+                assert plan_for(inp, m.w8, *a[5:], m.conv.groups).path \
                     == "grouped"
-                shapes[(tuple(inp.shape[1:]), tuple(m.w8.shape),
-                        m.conv.stride)] = m
+        grouped_n = launches["conv_int8_bn_act (grouped)"]
         print(f"   14f: B={B}: {len(seen)} grouped int8 convs, int32 "
               f"accumulators equal the plain version's; forward launches "
               f"{launches}, {grouped_n} of them grouped")
+        assert grouped_n > 0, launches
         if B == BATCH:
             _add(total, launches)
-            total["conv_int8_bn_act (grouped)"] = grouped_n
     for h in hooks:
         h.remove()
 
-    def times(x, m):
-        a = (x, m.w8, m.s_in, m.s_w, (m.bn.weight, m.bn.bias,
-                                      m.bn.running_mean, m.bn.running_var,
-                                      m.bn.eps), m.conv.stride,
-             m.conv.padding)
-        g = m.conv.groups
-        mult, add = fold_epilogue(m.s_w, a[4])
-        w = (m.w8.permute(0, 3, 1, 2).float() * mult[:, None, None, None]
-             ).bfloat16()
-        xb, b = x.bfloat16(), add.bfloat16()
-        with torch.inference_mode():
-            return (queued_ms(lambda: conv_int8_bn_act(*a, groups=g)),
-                    queued_ms(lambda: conv_int8_bn_act_reference(
-                        *a, groups=g), iters=5, warmup=1),
-                    queued_ms(lambda: F.silu(F.conv2d(xb, w, b, a[5], a[6],
-                                                      groups=g))))
-
-    for (cin_hw, w8s, stride), m in sorted(shapes.items()):
-        x = torch.randn(BATCH, *cin_hw, device=DEV).contiguous(
-            memory_format=torch.channels_last)
-        k, plain, lib = times(x, m)
-        print(f"   14f: B={BATCH} x {cin_hw} w8 {w8s} stride {stride}: "
-              f"grouped int8 {k:.4f} ms, plain {plain:.4f}, cuDNN bf16 "
-              f"grouped {lib:.4f} (queued_ms)")
     gen = torch.Generator(device=DEV).manual_seed(16)
-    x, w8, s_in, s_w, bn, s, p, g = grouped_case(BATCH, gen)
-    a = (x, w8, s_in, s_w, bn, s, p)
-    out = conv_int8_bn_act(*a, groups=g)
-    ref = conv_int8_bn_act_reference(*a, groups=g)
-    err = float((out.float() - ref.float()).abs().max())
-    assert err <= 3e-2 * float(ref.float().abs().max()), err
-    mult, add = fold_epilogue(s_w, bn)
-    w = (w8.permute(0, 3, 1, 2).float() * mult[:, None, None, None]
-         ).bfloat16()
-    F_conv = lambda: F.silu(F.conv2d(x, w, add.bfloat16(), s, p, groups=g))
-    ms = queued_ms(lambda: conv_int8_bn_act(*a, groups=g))
-    plain = queued_ms(lambda: conv_int8_bn_act_reference(*a, groups=g),
-                      iters=5, warmup=1)
-    lib = queued_ms(F_conv)
-    Cin, Cout, k, _, H, W = GROUPED_SHAPE
-    bnd, by = bound(2 * BATCH * H * W * Cout * k * k,
-                    2 * BATCH * H * W * (Cin + Cout) + Cout * k * k
-                    + 4 * (6 * Cout + 1), torch.int8)
-    print(f"   14f: depthwise 3x3 64 -> 64 at (B={BATCH}, 64, 160, 160), "
-          f"bf16: grouped int8 {ms:.4f} ms, plain {plain:.4f}, cuDNN bf16 "
-          f"grouped {lib:.4f}, bound {bnd:.5f} ({by}); max_abs_err {err:.3g}")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "library_ms": lib,
-            "max_abs_err": err, "bound_by": {by}}
+    entry = None
+    for cls in GROUPED_CLASSES:
+        for B in GROUPED_BATCHES:
+            x, w8, s_in, s_w, bn, s, p, g = grouped_case(B, cls, gen)
+            a = (x, w8, s_in, s_w, bn, s, p)
+            with torch.inference_mode():
+                acc = conv_int8_bn_act(*a, epilogue=False, groups=g)
+                out = conv_int8_bn_act(*a, groups=g)
+                assert torch.equal(acc, conv_int8_bn_act_reference(
+                    *a, epilogue=False, groups=g)), (cls, B)
+                ref = conv_int8_bn_act_reference(*a, groups=g)
+                err = float((out.float() - ref.float()).abs().max())
+                assert err <= 3e-2 * float(ref.float().abs().max()), err
+                mult, add = fold_epilogue(s_w, bn)
+                w = (w8.permute(0, 3, 1, 2).float()
+                     * mult[:, None, None, None]).bfloat16()
+                lib = queued_ms(lambda: F.silu(F.conv2d(
+                    x, w, add.bfloat16(), s, p, groups=g)), iters=10)
+                ms = queued_ms(lambda: conv_int8_bn_act(*a, groups=g),
+                               iters=10)
+                plain = queued_ms(lambda: conv_int8_bn_act_reference(
+                    *a, groups=g), iters=2, warmup=1)
+            Cin, Cout, k, _, H, W, _ = cls
+            Ho, Wo = out.shape[2:]
+            bnd, by = bound(2 * B * Ho * Wo * Cout * k * k * Cin // g,
+                            2 * B * (H * W * Cin + Ho * Wo * Cout)
+                            + Cout * k * k * Cin // g + 4 * (6 * Cout + 1),
+                            torch.int8)
+            pl = plan_for(x, w8, s, p, g)
+            print(f"   14f: B={B:2d} {str(cls):32s} bf16 {plan_text(pl)}: "
+                  f"accumulators equal, max |err| {err:.3g}; queued ms: "
+                  f"kernel {ms:.4f} bound {bnd:.5f} ({by}) plain "
+                  f"{plain:.4f} cuDNN bf16 grouped {lib:.4f}")
+            if cls[:6] == GROUPED_SHAPE and B == BATCH:
+                entry = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                         "library_ms": lib, "max_abs_err": err,
+                         "bound_by": {by}}
+            del x, a, acc, out, ref
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return entry
 
 
 def ensemble_slice(total: dict) -> None:

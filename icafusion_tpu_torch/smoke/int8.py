@@ -33,10 +33,9 @@ from icafusion_tpu_torch.smoke.val import VAL_BATCH
 # can move by one bf16 ulp (2^-8): 3e-2.
 INT8_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 # (Cin, Cout, k, s, H, W) of the input map: the quantized shape classes of
-# yolov5l-Transfusion at 640, the 512 x 640 canvas's P3 and two yolov5x
-# widths (Cin up to 2560, Cout 1280)
-INT8_SHAPES = ((3, 64, 6, 2, 640, 640),       # the stems (K = 108)
-               (64, 128, 3, 2, 320, 320),     # P2 down-sample
+# yolov5l-Transfusion at 640 but the stems (STEM_SHAPES), the 512 x 640
+# canvas's P3 and two yolov5x widths (Cin up to 2560, Cout 1280)
+INT8_SHAPES = ((64, 128, 3, 2, 320, 320),     # P2 down-sample
                (128, 64, 1, 1, 160, 160),     # the first C3's cv1
                (64, 64, 1, 1, 160, 160),      # its bottlenecks' 1x1
                (64, 64, 3, 1, 160, 160),      # and 3x3
@@ -49,6 +48,11 @@ INT8_SHAPES = ((3, 64, 6, 2, 640, 640),       # the stems (K = 108)
                (640, 1280, 3, 2, 40, 40),     # yolov5x's P5 down-sample
                (2560, 1280, 1, 1, 20, 20))    # and its SPPF's cv2
 INT8_BATCHES = (1, BATCH, 32)
+# The "stem" path's classes: yolov5l's stem (K = 108), the merged stem of
+# --merge (Cin 6, K = 216; smoke/merge.py) and a stem on a ragged map
+# (output tiles cut at both edges)
+STEM_SHAPES = ((3, 64, 6, 2, 640, 640), (6, 128, 6, 2, 640, 640),
+               (3, 64, 6, 2, 250, 330))
 # Phase 11 times each call by CUDA events around calls queued behind a
 # sleep (queued_ms), not by the profiler: a CUPTI window that records part
 # of its calls gave single int8 convs times below their bound in one run,
@@ -73,16 +77,23 @@ def int8_record(which: str) -> float:
 # beside.
 INT8_FORWARD_FIRST_MS = 15.0017
 INT8_FORWARD_CUDNN_FIRST_MS = 5.2440
+# the same sum with the tma path and the stems on the first design
+# (11b on the same card, before the stem path)
+INT8_FORWARD_TMA_MS = 7.6547
 INT8_MAP50_FIRST = {"s640": 0.96649, "n320": 0.97869}
 
 
 def plan_text(pl) -> str:
-    """The path a conv takes, and for the tma path its tile, groups,
-    splits and shared memory."""
-    if pl.path != "tma":
-        return "direct"
-    return (f"tma {pl.tile[0]}x{pl.tile[1]} G{pl.groups} S{pl.splits} "
-            f"{pl.smem // 1024}K")
+    """The path a conv takes, and its tile and shared memory: for the tma
+    path with its groups and splits, for the stem and grouped paths with
+    their grid."""
+    if pl.path == "tma":
+        return (f"tma {pl.tile[0]}x{pl.tile[1]} G{pl.groups} S{pl.splits} "
+                f"{pl.smem // 1024}K")
+    if pl.path in ("stem", "grouped"):
+        return (f"{pl.path} {pl.tile[0]}x{pl.tile[1]} grid {pl.grid} "
+                f"{pl.smem // 1024}K")
+    return "direct"
 
 
 def conv_out_hw(H, W, k, s):
@@ -172,10 +183,10 @@ def int8_yardsticks(args):
 
 
 def int8_kernel_slice(gen) -> None:
-    """11a: the int8 conv against its plain version at INT8_SHAPES, at B =
-    1, 4 and 32, in fp32 and bf16 (channels_last, and NCHW at B = 4), each
-    bf16 case timed beside its bound, the plain version and the
-    yardsticks."""
+    """11a: the int8 conv against its plain version at INT8_SHAPES (the
+    tma path's classes), at B = 1, 4 and 32, in fp32 and bf16
+    (channels_last, and NCHW at B = 4), each bf16 case timed beside its
+    bound, the plain version and the yardsticks."""
     from icafusion_tpu_torch.kernels.conv_int8 import (
         conv_int8_bn_act, conv_int8_bn_act_reference, plan_for)
     for shape in INT8_SHAPES:
@@ -203,6 +214,49 @@ def int8_kernel_slice(gen) -> None:
                   f"plain {plain:.3f} cuDNN bf16 {lib:.4f}{mm}")
             del args
         torch.cuda.empty_cache()
+
+
+def int8_stem_slice(gen) -> dict:
+    """11a, the stem path: STEM_SHAPES at B = 1, 4 and 32, fp32 and bf16,
+    channels_last and NCHW, each on the "stem" path: int32 accumulators
+    equal to the plain version's and outputs within INT8_TOL (with SiLU,
+    and with identity on channels_last), then timed (queued_ms) beside its
+    bound, the plain version and the cuDNN bf16 yardstick. Returns the
+    kernels line's stem entry: yolov5l's stem at B = 4, bf16,
+    channels_last (the engine's layout)."""
+    from icafusion_tpu_torch.kernels.conv_int8 import (
+        conv_int8_bn_act, conv_int8_bn_act_reference, plan_for)
+    entry = None
+    for shape in STEM_SHAPES:
+        for B in INT8_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                for layout, tag in ((torch.channels_last, "NHWC"),
+                                    (torch.contiguous_format, "NCHW")):
+                    args = int8_case(B, shape, dtype, gen, layout)
+                    pl = plan_for(*args[:2], *args[5:])
+                    assert pl.path == "stem", (shape, B, dtype, tag, pl)
+                    err = int8_check(args)
+                    if tag == "NHWC":
+                        err = max(err, int8_check(args, act=False))
+                    ms = queued_ms(lambda: conv_int8_bn_act(*args), iters=10)
+                    plain = queued_ms(
+                        lambda: conv_int8_bn_act_reference(*args), iters=2,
+                        warmup=1)
+                    lib = queued_ms(int8_yardsticks(args)[0], iters=10)
+                    bnd, by = int8_bound(B, shape, dtype)
+                    print(f"   B={B:2d} {str(shape):28s} {str(dtype)[6:]:8s} "
+                          f"{tag} {plan_text(pl)}: accumulators equal; max "
+                          f"|err| {err:.3g}; queued ms: kernel {ms:.4f} "
+                          f"bound {bnd:.5f} ({by}) plain {plain:.3f} cuDNN "
+                          f"bf16 {lib:.4f}")
+                    if (shape, B, dtype, tag) == (STEM_SHAPES[0], BATCH,
+                                                  torch.bfloat16, "NHWC"):
+                        entry = {"ms": ms, "plain_ms": plain,
+                                 "bound_ms": bnd, "library_ms": lib,
+                                 "max_abs_err": err, "bound_by": {by}}
+                    del args
+            torch.cuda.empty_cache()
+    return entry
 
 
 def int8_per_forward(engine, pair) -> dict:
@@ -242,9 +296,10 @@ def _int8_per_forward(seen) -> dict:
         layouts.add(layout)
         Cout, k, _, Cin = mod.w8.shape
         path = plan_for(x, mod.w8, mod.conv.stride, mod.conv.padding).path
-        # every int8 conv but the stem is served by the tma path from a
-        # channels_last map
-        assert Cin == 3 or (path == "tma" and layout == "NHWC"), (
+        # the stems take the stem path, every other int8 conv the tma path
+        # from a channels_last map: none the first design's direct path
+        assert path == ("stem" if Cin % 16 else "tma") and (
+            path == "stem" or layout == "NHWC"), (
             Cin, Cout, k, tuple(x.shape), x.stride(), path)
         key = (Cin, Cout, k, mod.conv.stride[0], *x.shape[2:])
         classes.setdefault(key, [args, act, 0, layout])[2] += 1
@@ -276,7 +331,8 @@ def _int8_per_forward(seen) -> dict:
     ratio = tot["ms"] / INT8_FORWARD_FIRST_MS
     print(f"   summed int8 conv time of the forward: {tot['ms']:.4f} ms "
           f"against the first design's {INT8_FORWARD_FIRST_MS} ms "
-          f"({ratio:.3f}x) and cuDNN bf16 conv + SiLU "
+          f"({ratio:.3f}x), the stems on it and the rest on the tma path "
+          f"{INT8_FORWARD_TMA_MS} ms, and cuDNN bf16 conv + SiLU "
           f"{tot['library_ms']:.4f} ms here (in the first design's run: "
           f"{INT8_FORWARD_CUDNN_FIRST_MS} ms)")
     return {**tot, "max_abs_err": err, "bound_by": {max(by, key=by.get)},
@@ -321,7 +377,9 @@ def int8_serving_slice(card: str):
     results, launches = counted(
         lambda: [engine.predict_arrays(*p) for p in pairs], int8=True)
     want = {"dual_cross_attention": 3 * len(pairs), "greedy_nms": len(pairs),
-            "conv3x3_bn_silu": 0, "conv_int8_bn_act": n_int8 * len(pairs)}
+            "conv3x3_bn_silu": 0, "conv_int8_bn_act": n_int8 * len(pairs),
+            "conv_int8_bn_act (stem)": 2 * len(pairs),
+            "conv_int8_bn_act (grouped)": 0}
     assert launches == want, (launches, want)
     for (rgb, _), out in zip(pairs, results):
         assert len(out) == len(rgb)
@@ -510,11 +568,12 @@ def int8_http_slice(work: Path) -> None:
 
 
 def int8_slice(card: str, fp32_map50: float):
-    """Phase 11; returns (the int8 conv's kernels-line entry, the launches
-    of 11b's counted requests)."""
+    """Phase 11; returns (the int8 conv's kernels-line entry, its stem
+    path's, the launches of 11b's counted requests)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = phase("11a int8 conv vs plain (B = 1, 4, 32; fp32, bf16)")
     int8_kernel_slice(gen)
+    stem = int8_stem_slice(gen)
     done(t0)
     t0 = phase("11b int8 serving: yolov5l-Transfusion 640, b4, bf16")
     entry, launches = int8_serving_slice(card)
@@ -524,4 +583,4 @@ def int8_slice(card: str, fp32_map50: float):
         t0 = phase("11d HTTP server --int8: s640 on 512 x 640")
         int8_http_slice(Path(tmp))
         done(t0)
-    return entry, launches
+    return entry, stem, launches

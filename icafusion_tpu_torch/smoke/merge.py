@@ -60,7 +60,7 @@ def _merged_int8_convs_exact(engine, pair) -> str:
     """Every int8 conv of one forward of a merged engine, on the input it
     was given: the kernel's int32 accumulators and output against its
     plain version (smoke/int8.int8_check raises on a difference); the
-    merged stem (Cin 6) takes the direct path, every other conv the tma
+    merged stem (Cin 6) takes the stem path, every other conv the tma
     path from a channels_last map. Returns a summary line."""
     from icafusion_tpu_torch.kernels.conv_int8 import plan_for
     from icafusion_tpu_torch.nn.layers import Conv
@@ -88,7 +88,7 @@ def _merged_int8_convs_exact(engine, pair) -> str:
                             mod.conv.padding).path
             nhwc = inp.is_contiguous(memory_format=torch.channels_last)
             cin = mod.w8.shape[3]
-            assert (path == "direct" if cin == 6 else
+            assert (path == "stem" if cin == 6 else
                     (path == "tma" and nhwc)), (tuple(mod.w8.shape), path)
             paths[path] = paths.get(path, 0) + 1
     return (f"{len(seen)} int8 convs of a merged forward equal their plain "

@@ -45,6 +45,28 @@ gated run does not make. Each subcommand needs a CUDA device.
         pass entered) built beside build/, run at smoke/int8.INT8_SHAPES
         at B = 4 in bf16; prints the means over the blocks.
 
+    python3 port_probes.py int8-small
+
+        The int8 conv's "stem" and "grouped" paths against the first
+        design's direct path (launched through kernels/conv_int8.py:
+        _launch with a "direct" plan) on the same inputs: the stem
+        (3 -> 64, k6 s2, 640 px), the merged stem (6 -> 128) and the
+        depthwise 3x3 64 -> 64 at (B, 64, 160, 160) (groups 64), at B = 1,
+        4 and 32 in bf16 and fp32, channels_last and NCHW; each path's
+        int32 accumulators against the plain version, then its time
+        (queued_ms) beside the bound and cuDNN's bf16 conv + SiLU.
+
+    python3 port_probes.py int8-small-variants
+
+        Where the "stem" and "grouped" kernels' time goes: copies of
+        csrc/conv_int8_small.cu with one phase cut out or one setting
+        changed (SMALL_VARIANTS), each built beside build/ and launched
+        through the wrapper at int8-small's stem, merged stem and
+        depthwise classes at B = 4, bf16, channels_last, timed by
+        queued_ms; the shipped copy also with identity in place of SiLU
+        and with the raw int32 sums (epilogue off). Variants that cut a
+        phase give wrong sums and are only timed.
+
     python3 port_probes.py int8-forward
 
         chip_smoke.py's phase 11b alone (yolov5l-Transfusion 640, batch 4,
@@ -105,6 +127,7 @@ Each prints one JSON object as its last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -255,7 +278,7 @@ def _int8_classes(batches=(4, 1)):
     from icafusion_tpu_torch.smoke import int8 as cs
     for B in batches:
         for shape in cs.INT8_SHAPES:
-            if shape[0] % 16 == 0:          # the stem takes the direct path
+            if shape[0] % 16 == 0:          # the stems take the stem path
                 yield B, shape
 
 
@@ -318,6 +341,255 @@ def int8_splits() -> dict:
         del args, ref
     out["plan_over_fastest_mean"] = float(np.mean(losses))
     out["plan_over_fastest_max"] = float(np.max(losses))
+    return out
+
+
+# int8-small: (name, (Cin, Cout, k, s, H, W), groups)
+SMALL_CLASSES = (("stem", (3, 64, 6, 2, 640, 640), 1),
+                 ("merged stem", (6, 128, 6, 2, 640, 640), 1),
+                 ("depthwise", (64, 64, 3, 1, 160, 160), 64))
+
+
+def int8_small() -> dict:
+    import torch.nn.functional as F
+    from icafusion_tpu_torch.kernels import conv_int8 as ci
+    from icafusion_tpu_torch.smoke import int8 as cs
+    from icafusion_tpu_torch.smoke.common import bound
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, shape, g in SMALL_CLASSES:
+        Cin, Cout, k, s, H, W = shape
+        for B in (1, 4, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                for layout in (torch.channels_last, torch.contiguous_format):
+                    x, w8, s_in, s_w, bn, st, p = cs.int8_case(
+                        B, shape, dtype, gen, layout)
+                    if g > 1:
+                        w8 = w8[..., :Cin // g].contiguous()
+                        s_in = s_in.max().reshape(()).expand(Cin).contiguous()
+                    args = (x, w8, s_in, s_w, bn, st, p)
+                    pl = ci.plan_for(x, w8, st, p, g)
+                    direct = ci.Plan("direct", "the first design")
+                    ref = ci.conv_int8_bn_act_reference(*args, epilogue=False,
+                                                        groups=g)
+                    for plan_ in (pl, direct):
+                        got = ci._launch(*args, True, False, plan_, g)
+                        assert torch.equal(got, ref), (name, B, plan_.path)
+                    ms = {pl_.path: cs.queued_ms(
+                        lambda: ci._launch(*args, True, True, pl_, g),
+                        iters=10, warmup=2) for pl_ in (pl, direct)}
+                    mult, add = ci.fold_epilogue(s_w, bn)
+                    wf = (w8.permute(0, 3, 1, 2).float()
+                          * mult[:, None, None, None]).bfloat16()
+                    xb, b = x.bfloat16(), add.bfloat16()
+                    lib = cs.queued_ms(lambda: F.silu(F.conv2d(
+                        xb, wf, b, st, p, groups=g)), iters=10, warmup=2)
+                    if g == 1:
+                        bnd, by = cs.int8_bound(B, shape, dtype)
+                    else:
+                        Ho, Wo = cs.conv_out_hw(H, W, k, s)
+                        sz = torch.finfo(dtype).bits // 8
+                        bnd, by = bound(
+                            2 * B * Ho * Wo * Cout * k * k * Cin // g,
+                            B * (Cin * H * W + Cout * Ho * Wo) * sz
+                            + Cout * k * k * Cin // g + 4 * (6 * Cout + 1),
+                            torch.int8)
+                    lay = ("NHWC" if layout == torch.channels_last
+                           else "NCHW")
+                    key = f"{name} B={B} {str(dtype)[6:]} {lay}"
+                    print(f"   {key}: {pl.path} {pl.tile} {ms[pl.path]:.4f} "
+                          f"ms, direct {ms['direct']:.4f} ms, cuDNN bf16 "
+                          f"{lib:.4f} ms, bound {bnd:.5f} ({by}); "
+                          "accumulators equal", flush=True)
+                    out[key] = {"path": pl.path, "ms": ms[pl.path],
+                                "direct_ms": ms["direct"], "cudnn_ms": lib,
+                                "bound_ms": bnd}
+                    del x, args, ref
+            torch.cuda.empty_cache()
+    return out
+
+
+# int8-small-variants: name -> (replacements (old, new) of every occurrence
+# in conv_int8_small.cu and its headers, kernels/conv_int8.py constants
+# the plans of that copy need)
+_FAST_SILU = (("  if (act) y = __fdiv_rn(y, __fadd_rn(1.f, expf(-y)));",
+               "  if (act) y = __fdividef(y, 1.f + __expf(-y));"),)
+SMALL_VARIANTS = {
+    "shipped": ((), {}),
+    "stem: no products": ((
+        ("      for (int ks = 0; ks < p.steps; ++ks) {",
+         "      for (int ks = 0; ks < 0; ++ks) {"),), {}),
+    "stem: k-steps unrolled 1": ((
+        ("#pragma unroll 2\n      for (int ks",
+         "#pragma unroll 1\n      for (int ks"),), {}),
+    "stem: no window loads": ((
+        ("  fetch(blockIdx.x);\n", ""),
+        ("    if (tile + static_cast<int>(gridDim.x) < p.tiles)\n      "
+         "fetch(tile + gridDim.x);\n", "")), {}),
+    "stem: no stores": ((
+        ("      copy_out<kStemThreads>(p, tl, stage, n0, min(kNC, p.Cout - n0), "
+         "esz);\n", ""),), {}),
+    "stem: 4 blocks an SM of 4 warps, 64-pixel tiles": ((
+        ("constexpr int kStemThreads = 256;", "constexpr int kStemThreads = 128;"),
+        ("constexpr int kStemBlocks = 2;", "constexpr int kStemBlocks = 4;"),
+        ("constexpr int kSlots = 128;", "constexpr int kSlots = 64;")),
+        {"STEM_THREADS": 128, "STEM_BLOCKS": 4, "STEM_SLOTS": 64}),
+    "stem: phases stamped": ((
+        ("using namespace icaf_int8;\n",
+         "using namespace icaf_int8;\n__device__ unsigned long long "
+         "g_ph[1 << 14];\n__device__ __forceinline__ unsigned long long "
+         "now() { unsigned long long t; asm volatile(\"mov.u64 %0, "
+         "%%globaltimer;\" : \"=l\"(t)); return t; }\n"),
+        ("  fetch(blockIdx.x);\n  for (int tile = blockIdx.x;",
+         "  fetch(blockIdx.x);\n  unsigned long long ph[6] = {}, t_ = now(), "
+         "u_;\n  for (int tile = blockIdx.x;"),
+        ("    stash();\n    __syncthreads();   // the window is in; the stage "
+         "is free\n",
+         "    stash();\n    u_ = now(); ph[0] += u_ - t_; t_ = u_;\n"
+         "    __syncthreads();\n    u_ = now(); ph[1] += u_ - t_; t_ = u_;\n"),
+        ("      // rows i0 (acc[jn][0, 1]) and i0 + 8",
+         "      u_ = now(); ph[2] += u_ - t_; t_ = u_;\n"
+         "      // rows i0 (acc[jn][0, 1]) and i0 + 8"),
+        ("      __syncthreads();   // the stage is full; the window is free\n",
+         "      u_ = now(); ph[3] += u_ - t_; t_ = u_;\n      __syncthreads();\n"
+         "      u_ = now(); ph[4] += u_ - t_; t_ = u_;\n"),
+        ("esz);\n      if (n0 + kNC < p.Cout) __syncthreads();\n    }\n  }\n}",
+         "esz);\n      u_ = now(); ph[5] += u_ - t_; t_ = u_;\n"
+         "      if (n0 + kNC < p.Cout) __syncthreads();\n    }\n  }\n"
+         "  if (tid == 0) for (int i = 0; i < 6; ++i) g_ph[blockIdx.x * 6 + i]"
+         " = ph[i];\n}"),
+        ("             : launch_grouped<float>(p, static_cast<int>(grid), "
+         "smem, st);\n}\n",
+         "             : launch_grouped<float>(p, static_cast<int>(grid), "
+         "smem, st);\n}\nextern \"C\" int icaf_stem_phases(void* h, int n) "
+         "{ return cudaMemcpyFromSymbol(h, g_ph, n * 8); }\n")), {}),
+    "fast SiLU": (_FAST_SILU, {}),
+    "grouped: no products": ((
+        ("      for (int ky = 0; ky < p.kh; ++ky) {\n        const int8_t* xr",
+         "      for (int ky = 0; ky < 0; ++ky) {\n        const int8_t* xr"),),
+        {}),
+    "grouped: no window": ((
+        ("      while (wr < p.hh) {", "      while (wr < 0) {"),), {}),
+    "grouped: no stores": ((
+        ("  copy_out<kThreads>(p, tl, stage, co_lo, cout, esz);\n}", "}"),),
+        {}),
+    "grouped: 2 blocks an SM": ((
+        ("__launch_bounds__(kThreads, kKW <= 3 ? 4 : 2)\n",
+         "__launch_bounds__(kThreads, 2)\n"),), {}),
+}
+
+
+@contextlib.contextmanager
+def _plan_constants(ci, values: dict):
+    """kernels/conv_int8.py's module constants set to ``values`` (and
+    plan's cache cleared) inside the block."""
+    old = {k: getattr(ci, k) for k in values}
+    ci.plan.cache_clear()
+    for k, v in values.items():
+        setattr(ci, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(ci, k, v)
+        ci.plan.cache_clear()
+
+
+def int8_small_variants() -> dict:
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.kernels import conv_int8 as ci
+    from icafusion_tpu_torch.smoke import int8 as cs
+    names = ("conv_int8_small.cu", *_build.HEADERS)
+    texts = {n: (_build.CSRC / n).read_text() for n in names}
+    work = _build.BUILD_DIR / "int8_small_variants"
+
+    def build(i_name):
+        i, name = i_name
+        d = work / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        out = dict(texts)
+        for a, b in SMALL_VARIANTS[name][0]:
+            hits = [n for n in names if a in out[n]]
+            assert hits, (name, a)
+            for n in hits:
+                out[n] = out[n].replace(a, b)
+        for n, text in out.items():
+            (d / n).write_text(text)
+        so = d / "lib.so"
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                            "-o", str(so), str(d / names[0])],
+                           capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr
+        spills = sorted({ln.strip() for ln in r.stderr.splitlines()
+                         if "spill" in ln and not ln.strip().startswith("0 ")})
+        lib = ctypes.CDLL(str(so))
+        for entry in ("icaf_conv_int8_stem", "icaf_conv_int8_grouped"):
+            fn = getattr(lib, entry)
+            fn.argtypes = _build.SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+        return name, lib, spills
+
+    with ThreadPoolExecutor(len(SMALL_VARIANTS)) as pool:
+        libs = list(pool.map(build, enumerate(SMALL_VARIANTS)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for name, shape, g in SMALL_CLASSES:
+        Cin = shape[0]
+        x, w8, s_in, s_w, bn, st, p = cs.int8_case(4, shape, torch.bfloat16,
+                                                   gen)
+        if g > 1:
+            w8 = w8[..., :Cin // g].contiguous()
+            s_in = s_in.max().reshape(()).expand(Cin).contiguous()
+        cases.append((name, (x, w8, s_in, s_w, bn, st, p), g))
+    real, out = _build.library, {}
+    try:
+        for name, lib, spills in libs:
+            _build.library = lambda lib=lib: lib
+            row = {}
+            for cname, args, g in cases:
+                kind = name.split(":")[0]      # a variant of one kernel
+                if (kind, g > 1) in (("stem", True), ("grouped", False)):
+                    continue
+                with _plan_constants(ci, SMALL_VARIANTS[name][1]):
+                    pl = ci.plan_for(*args[:2], args[5], args[6], g)
+                runs = {"": (True, True)}
+                if name == "shipped":
+                    runs.update({" identity": (False, True),
+                                 " int32": (True, False)})
+                for tag, (act, epi) in runs.items():
+                    row[cname + tag] = cs.queued_ms(
+                        lambda: ci._launch(*args, act, epi, pl, g),
+                        iters=20, warmup=3)
+                if "no " not in name:      # a whole kernel: its sums
+                    y = ci._launch(*args, True, False, pl, g)
+                    row[cname + " exact"] = bool(torch.equal(
+                        y, ci.conv_int8_bn_act_reference(
+                            *args, epilogue=False, groups=g)))
+            if name == "stem: phases stamped":
+                for cname, args, g in cases:
+                    if g > 1:
+                        continue
+                    pl = ci.plan_for(*args[:2], args[5], args[6], g)
+                    ci._launch(*args, True, True, pl, g)
+                    torch.cuda.synchronize()
+                    t = np.zeros(pl.grid * 6, np.uint64)
+                    lib.icaf_stem_phases.argtypes = (ctypes.c_void_p,
+                                                     ctypes.c_int)
+                    lib.icaf_stem_phases(t.ctypes.data, pl.grid * 6)
+                    t = t.reshape(-1, 6).astype(np.float64).sum(0) / pl.tiles
+                    row[cname + " us a tile (quantize, wait, products, "
+                        "epilogue, wait, stores)"] = [round(v / 1e3, 3)
+                                                      for v in t]
+            print(f"   {name}: " + ", ".join(
+                f"{k} {v}" if isinstance(v, (bool, list))
+                else f"{k} {v:.4f} ms"
+                for k, v in row.items())
+                  + (f"; spills {spills}" if spills else ""), flush=True)
+            out[name] = row
+    finally:
+        _build.library = real
     return out
 
 
@@ -600,6 +872,8 @@ def main(argv=None) -> int:
     sub.add_parser("int8-splits")
     sub.add_parser("int8-phases")
     sub.add_parser("int8-forward")
+    sub.add_parser("int8-small")
+    sub.add_parser("int8-small-variants")
     sub.add_parser("dist-faults")
     sub.add_parser("reference")
     w = sub.add_parser("wrapper-cost")
@@ -622,6 +896,10 @@ def main(argv=None) -> int:
         res = {"int8_splits": int8_splits()}
     elif args.cmd == "int8-phases":
         res = {"int8_phases": int8_phases()}
+    elif args.cmd == "int8-small-variants":
+        res = {"int8_small_variants": int8_small_variants()}
+    elif args.cmd == "int8-small":
+        res = {"int8_small": int8_small()}
     elif args.cmd == "int8-forward":
         res = {"int8_forward": int8_forward(card)}
     elif args.cmd == "dist-faults":

@@ -403,16 +403,67 @@ def test_int8_tma_path_matches_reference(dev, case, dtype):
 
 
 def test_int8_stem_and_nchw_take_the_direct_path(dev):
+    """The stem (Cin 3) takes the "stem" path; NCHW maps of Cin 64 the
+    direct one (the first design); both equal the plain version."""
     from icafusion_tpu_torch.kernels.conv_int8 import plan_for
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for shape, layout in (((3, 32, 6, 2, 64, 80), torch.channels_last),
-                          ((64, 64, 3, 1, 20, 20), torch.contiguous_format),
-                          ((64, 128, 1, 1, 20, 20), torch.contiguous_format)):
+    for shape, layout, path in (
+            ((3, 32, 6, 2, 64, 80), torch.channels_last, "stem"),
+            ((64, 64, 3, 1, 20, 20), torch.contiguous_format, "direct"),
+            ((64, 128, 1, 1, 20, 20), torch.contiguous_format, "direct")):
         for dtype in (torch.float32, torch.bfloat16):
             args = smoke_int8.int8_case(2, shape, dtype, gen, layout)
             assert plan_for(args[0], args[1], args[5],
-                            args[6]).path == "direct"
+                            args[6]).path == path
             smoke_int8.int8_check(args)
+
+
+# The stem path: (B, (Cin, Cout, k, s, H, W)): the stems of n and x, the
+# merged stem (Cin 6, K = 216), Focus's Cin 12 3x3, a 1x1 and a 7x7, odd
+# maps (ragged tiles), Cin 40 (channels_last only) and Cout 136 (a second
+# 64-channel pass)
+INT8_STEM_CASES = [(2, (3, 16, 6, 2, 64, 80)), (1, (3, 80, 6, 2, 96, 64)),
+                   (2, (6, 128, 6, 2, 64, 64)), (2, (12, 32, 3, 1, 33, 29)),
+                   (3, (3, 24, 1, 1, 17, 23)), (2, (5, 40, 7, 2, 45, 51)),
+                   (2, (3, 136, 3, 2, 37, 41)), (2, (40, 64, 3, 1, 19, 21))]
+
+
+# both layouts where Cin < 16; NCHW with Cin 40 takes the direct path
+@pytest.mark.parametrize("case,layout", [
+    (case, layout) for case in INT8_STEM_CASES
+    for layout in (torch.channels_last, torch.contiguous_format)
+    if case[1][0] < 16 or layout == torch.channels_last])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_stem_path_matches_reference(dev, case, layout, dtype):
+    """The stem path's int32 accumulators equal the plain version's and
+    its outputs lie within smoke_int8.INT8_TOL, with SiLU and identity;
+    one launch counted on the stem path a call."""
+    from icafusion_tpu_torch.kernels.conv_int8 import plan_for
+    B, shape = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + B)
+    args = smoke_int8.int8_case(B, shape, dtype, gen, layout)
+    assert plan_for(args[0], args[1], args[5], args[6]).path == "stem"
+    before = conv_int8_bn_act.stem_launches
+    smoke_int8.int8_check(args)
+    smoke_int8.int8_check(args, act=False)
+    assert conv_int8_bn_act.stem_launches == before + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_stem_takes_the_engines_uint8_view(dev, dtype):
+    """The engine's stem input: a permuted uint8 NHWC batch / 255, cast
+    (pixels 3 elements apart, 6 or 12 bytes), at 64 x 96."""
+    from icafusion_tpu_torch.kernels.conv_int8 import plan_for
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    u8 = torch.randint(0, 256, (3, 64, 96, 3), device="cuda", generator=gen,
+                       dtype=torch.uint8)
+    x = (u8.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
+    assert x.stride() == (64 * 96 * 3, 1, 96 * 3, 3)
+    args = list(smoke_int8.int8_case(3, (3, 32, 6, 2, 64, 96), dtype, gen))
+    args[0] = x
+    args[2] = (x.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-8)
+    assert plan_for(x, args[1], args[5], args[6]).path == "stem"
+    smoke_int8.int8_check(tuple(args))
 
 
 @pytest.mark.parametrize("offset", [16, 24])
@@ -832,7 +883,13 @@ def test_int8_conv_and_nms_raise_under_grad_on_the_card(dev):
 # 128-channel tile, g = 4 on a 1x1 and a ragged map
 INT8_GROUPED_CASES = [(64, 64, 3, 1, 20, 20, 64), (24, 24, 5, 1, 16, 16, 24),
                       (32, 32, 3, 2, 16, 16, 32), (64, 320, 3, 1, 9, 13, 2),
-                      (48, 96, 1, 1, 7, 11, 4)]
+                      (48, 96, 1, 1, 7, 11, 4),
+                      # the CPU tests' four classes, a channel multiplier
+                      # of 2, 7x7 depthwise, 128 groups (two chunks)
+                      (32, 32, 3, 1, 13, 18, 32), (32, 48, 3, 2, 13, 18, 2),
+                      (16, 16, 5, 1, 13, 18, 16), (24, 48, 1, 1, 13, 18, 4),
+                      (16, 32, 3, 1, 15, 10, 16), (8, 8, 7, 1, 21, 19, 8),
+                      (128, 128, 3, 2, 23, 17, 128)]
 
 
 @pytest.mark.parametrize("case", INT8_GROUPED_CASES)
@@ -840,7 +897,7 @@ INT8_GROUPED_CASES = [(64, 64, 3, 1, 20, 20, 64), (24, 24, 5, 1, 16, 16, 24),
                                     torch.contiguous_format])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_grouped_direct_path_matches_reference(dev, case, layout, dtype):
-    """A grouped conv takes the direct path ("grouped"): its int32
+    """A grouped conv takes the "grouped" path: its int32
     accumulators equal the plain version's exactly (with a per-tensor
     s_in, as quantize_model gives a grouped conv), its outputs within
     smoke_int8.INT8_TOL of the largest."""
@@ -853,7 +910,7 @@ def test_int8_grouped_direct_path_matches_reference(dev, case, layout, dtype):
     w8 = w8[..., :shape[0] // g].contiguous()
     s_in = s_in.max().reshape(())
     args = (x, w8, s_in, s_w, bn, s, p)
-    assert plan_for(x, w8, s, p, groups=g).reason == "grouped"
+    assert plan_for(x, w8, s, p, groups=g).path == "grouped"
     before = conv_int8_bn_act.grouped_launches
     acc = conv_int8_bn_act(*args, epilogue=False, groups=g)
     out = conv_int8_bn_act(*args, groups=g)

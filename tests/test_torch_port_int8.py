@@ -16,10 +16,11 @@ import jax.numpy as jnp
 
 from icafusion_tpu.models import zoo as jax_zoo
 from icafusion_tpu.models.assembler import build_model as jax_build_model
+from icafusion_tpu.nn import layers as jax_layers
 from icafusion_tpu.nn.layers import Conv as JaxConv
 from icafusion_tpu.utils import quantize as jq
 from icafusion_tpu_torch.kernels.conv_int8 import (conv_int8_bn_act,
-                                                   quantize_input)
+                                                   plan_for, quantize_input)
 from icafusion_tpu_torch.models import zoo
 from icafusion_tpu_torch.models.assembler import build_model
 from icafusion_tpu_torch.nn.layers import Conv
@@ -161,6 +162,41 @@ def test_int8_conv_matches_jax(c1, c2, k, s, act):
                                atol=1e-5 * np.abs(want).max())
     x8 = quantize_input(nchw(x), conv.s_in)
     assert x8.abs().max() == 127
+
+
+@pytest.mark.parametrize("c1,c2", [(3, 32), (6, 64)])
+@pytest.mark.parametrize("phase_packed", [False, True])
+def test_stem_int8_conv_matches_jax(monkeypatch, c1, c2, phase_packed):
+    """The stem (k6 s2 p2) at 64 px: the plain version's int32
+    accumulators, which the card's "stem" path equals, equal the JAX int8
+    conv's (_int8_conv with s_w = 1) under both of its lowerings (XLA's
+    conv, and the phase-packed 2x2 rewrite of ICAF_STEM_PP), at Cin 3 and
+    at the merged stem's Cin 6; the module outputs agree within rtol 1e-5
+    (atol 1e-5 of the largest)."""
+    monkeypatch.setattr(jax_layers, "STEM_PP_ENABLED", phase_packed)
+    jconv = JaxConv(c1=c1, c2=c2, k=6, s=2, p=2)
+    rng = np.random.default_rng(c1 + c2)
+    x = rng.uniform(0, 1, (2, 64, 64, c1)).astype(np.float32)
+    v = random_variables(jconv, jnp.asarray(x), train=False)
+    _, mut = jconv.apply(v, jnp.asarray(x), train=False, mutable=["calib"])
+    calib = jax.tree.map(np.asarray, mut["calib"])
+    qv = jax.tree.map(np.asarray, jq.quantize_variables(v, calib))
+    conv = load_jax_variables(Conv(c1, c2, 6, 2, 2).eval(), qv)
+    ones = {**qv, "quant": {**qv["quant"], "s_w": np.ones(c2, np.float32)}}
+    want_acc = np.asarray(jconv.apply(ones, jnp.asarray(x), (2, 2), (2, 2),
+                                      method=JaxConv._int8_conv))
+    with torch.no_grad():
+        args = (nchw(x), conv.w8, conv.s_in, conv.s_w, None,
+                conv.conv.stride, conv.conv.padding)
+        acc = conv_int8_bn_act(*args, epilogue=False)
+        out = conv(nchw(x))
+    assert plan_for(*args[:2], *args[5:]).path == "stem"
+    assert acc.shape == (2, c2, 32, 32)
+    np.testing.assert_array_equal(nhwc(acc), want_acc.astype(np.int32))
+    assert np.abs(want_acc).max() > 1000
+    want = np.asarray(jconv.apply(qv, jnp.asarray(x), train=False))
+    np.testing.assert_allclose(nhwc(out), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def _conv_inputs_jax(jm, qv, rgb, ir):

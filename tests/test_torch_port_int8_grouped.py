@@ -75,15 +75,26 @@ def test_grouped_int8_conv_matches_jax(c1, c2, k, s, g):
                                atol=1e-5 * np.abs(want).max())
 
 
-def test_plan_sends_a_grouped_conv_to_the_direct_path():
+def test_plan_sends_a_grouped_conv_to_the_grouped_path():
+    """Every grouped conv at stride 1 or 2 with kw 1, 3, 5 or 7 takes the
+    "grouped" path, in any layout (NCHW here); stride 3 and kw 2 keep the
+    first design's direct path, which takes groups too."""
     pl = ci.plan(4, 64, 20, 20, 64, 3, 3, 1, 1, torch.bfloat16,
                  conv_groups=64)
-    assert (pl.path, pl.reason) == ("direct", "grouped")
+    assert (pl.path, pl.reason) == ("grouped", "grouped")
     assert ci.plan(4, 64, 20, 20, 64, 3, 3, 1, 1, torch.bfloat16).path \
         == "tma"
     x = torch.zeros(1, 64, 8, 8)
     assert ci.plan_for(x, torch.zeros(64, 3, 3, 1, dtype=torch.int8), 1, 1,
-                       groups=64).reason == "grouped"
+                       groups=64).path == "grouped"
+    for c1, c2, k, s, g in ((32, 32, 3, 1, 32), (32, 48, 3, 2, 2),
+                            (16, 16, 5, 1, 16), (24, 48, 1, 1, 4)):
+        assert ci.plan(2, c1, 13, 18, c2, k, k, s, k // 2,
+                       conv_groups=g).path == "grouped"
+    assert ci.plan(2, 32, 13, 18, 32, 3, 3, 3, 1,
+                   conv_groups=32).path == "direct"
+    assert ci.plan(2, 32, 13, 18, 32, 2, 2, 1, 0,
+                   conv_groups=32).path == "direct"
 
 
 @pytest.fixture(scope="module")
