@@ -16,7 +16,9 @@ exit code is non-zero and the final line is never printed:
    shipped config (B = 4; heads of 8 to 256 values) and five ragged
    lengths, float32 and bfloat16, timed beside the plain version and a
    library yardstick, each by device time (torch.profiler) and by CUDA
-   events;
+   events, the kernel's device time also by launch (the projections, the
+   core), float32 beside its bound at the 3xTF32 rate and at FFMA's, and
+   its launches held to the 3xTF32 kernels;
 3. the greedy NMS kernels (suppression bitmask, then the walk) against the
    plain loop on the card, B = 4, at K = 1, 1024 (the serving pool), 4096,
    8193 and 20000, at B = 1 and 32 with K = 1024, at B = 8, K = 8192 (the
@@ -28,7 +30,8 @@ exit code is non-zero and the final line is never printed:
    batches 1 and 32 of it, on a 512 x 640 canvas (16, 64, 128, 160), six
    ragged ones and the validation path's rect (2, 64, 68, 84) and TTA
    (2, 64, 56, 56) maps, float32 and bfloat16, channels_last (the serving
-   path's layout) and NCHW, timed like phase 2;
+   path's layout) and NCHW, timed like phase 2 (float32 channels_last
+   held to the 3xTF32 kernel);
 4. the slice: (a) a tiny model served on the card against the same engine
    on the CPU; (b) ServingEngine on yolov5l-Transfusion at 640, batch 4,
    bfloat16, random weights from torch.Generator().manual_seed(0), three
@@ -253,10 +256,10 @@ def main(argv=None) -> int:
     from icafusion_tpu_torch.smoke.common import (
         ATTN_RAGGED, ATTN_SHAPES, ATTN_SHIPPED, BATCH, BUCKETS,
         CONVS_PER_FORWARD, CONV_SHAPES, HEADS, INT8_PATH_KEYS, MAP50_GATE,
-        PROFILER, STEADY_REQUESTS, attention_bound, attention_case, attention_library,
-        both_ms, bound, check_pool_grads, conv_bound, conv_case, conv_library,
-        cuda_ms, device_times, done, matched, nms_case, phase,
-        profile_requests)
+        PROFILER, STEADY_REQUESTS, TF32X3, attention_bound, attention_case,
+        attention_library, both_ms, bound, bounds_text, check_pool_grads,
+        conv_bound, conv_case, conv_library, cuda_ms, device_times, done,
+        matched, nms_case, phase, profile_requests)
     from icafusion_tpu_torch.smoke.train import (
         fit_slice, train_card_vs_cpu, train_slice)
     from icafusion_tpu_torch.smoke.val import val_slice
@@ -324,7 +327,9 @@ def main(argv=None) -> int:
     main_path = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                  "library_ms": 0.0, "max_abs_err": 0.0, "bound_by": set()}
     events = {"ms": 0.0, "library_ms": 0.0}
-    per_bucket = {}        # (B, dtype) -> kernel, plain, library ms a forward
+    per_bucket = {}        # (B, dtype) -> kernel, plain, library ms a
+    # forward, the bound, and in fp32 the bound at 3xTF32
+    by_launch = {}         # (B, dtype) -> projections, core ms a forward
     cases = ([(BATCH, N, D) for N, D in ATTN_SHAPES + ATTN_RAGGED
               + ATTN_SHIPPED]
              + [(B, N, D) for B in BUCKETS for N, D in ATTN_SHAPES])
@@ -344,8 +349,13 @@ def main(argv=None) -> int:
                 print(f"   {str(dtype)[6:]:8s} B={B:2d} N={N:3d} D={D:4d}: "
                       f"max_abs_err {err:.3g} (ragged, not timed)")
                 continue
-            ms, ms_ev = both_ms(
-                lambda: dual_cross_attention(vis, ir, ws, bs, HEADS))
+            fn = lambda: dual_cross_attention(vis, ir, ws, bs, HEADS)
+            launches = device_times(fn)
+            ms, ms_ev = sum(launches.values()), cuda_ms(fn)
+            if dtype == torch.float32 and not PROFILER["dead"]:
+                # the 3xTF32 kernels, not the first design's FFMA ones
+                for k in ("projections_tf32_kernel", "attention_tf32_kernel"):
+                    assert any(k in n for n in launches), launches
             plain, plain_ev = both_ms(lambda: dual_cross_attention_reference(
                 vis, ir, ws, bs, HEADS))
             lib, lib_ev = both_ms(lambda: attention_library(vis, ir, ws, bs))
@@ -354,13 +364,20 @@ def main(argv=None) -> int:
                   f"max_abs_err {err:.3g}  device ms: kernel {ms:.4f} plain "
                   f"{plain:.4f} "
                   f"library {lib:.4f}; events ms: kernel {ms_ev:.4f} plain "
-                  f"{plain_ev:.4f} library {lib_ev:.4f}; bound {bnd:.5f} ms "
-                  f"({by}){'' if (N, D) in ATTN_SHAPES else ' (shipped)'}")
+                  f"{plain_ev:.4f} library {lib_ev:.4f}; "
+                  f"{bounds_text(attention_bound, B, N, D, dtype=dtype)}"
+                  f"{'' if (N, D) in ATTN_SHAPES else ' (shipped)'}")
             if (N, D) not in ATTN_SHAPES:
                 continue
-            acc = per_bucket.setdefault((B, dtype), [0.0, 0.0, 0.0, 0.0])
-            for i, v in enumerate((ms, plain, lib, bnd)):
+            bnd3 = attention_bound(B, N, D, dtype, TF32X3)[0]
+            acc = per_bucket.setdefault((B, dtype), [0.0] * 5)
+            for i, v in enumerate((ms, plain, lib, bnd, bnd3)):
                 acc[i] += v
+            split = by_launch.setdefault((B, dtype), [0.0, 0.0])
+            split[0] += sum(v for k, v in launches.items()
+                            if "projections" in k)
+            split[1] += sum(v for k, v in launches.items()
+                            if "attention" in k and "projections" not in k)
             if dtype == torch.bfloat16 and B == BATCH:  # the engine's
                 for k, v in (("ms", ms), ("plain_ms", plain),
                              ("bound_ms", bnd), ("library_ms", lib)):
@@ -370,11 +387,16 @@ def main(argv=None) -> int:
                 main_path["max_abs_err"] = max(main_path["max_abs_err"], err)
                 main_path["bound_by"].add(by)
     report["dual_cross_attention"] = main_path
-    for (B, dtype), (k, p, l, b) in sorted(per_bucket.items(),
-                                           key=lambda kv: kv[0][0]):
+    for (B, dtype), (k, p, l, b, b3) in sorted(per_bucket.items(),
+                                               key=lambda kv: kv[0][0]):
+        proj, core = by_launch[(B, dtype)]
+        split = ("not measured" if PROFILER["dead"] else
+                 f"projections {proj:.4f} ms, core {core:.4f} ms")
+        bounds = (f"bound {b3:.5f} at 3xTF32, {b:.5f} at FFMA"
+                  if dtype == torch.float32 else f"bound {b:.5f}")
         print(f"   B={B:2d} {str(dtype)[6:]:8s} per forward (3 calls), device "
-              f"time: kernel {k:.4f} ms, plain {p:.4f}, library {l:.4f}, "
-              f"bound {b:.5f}")
+              f"time: kernel {k:.4f} ms ({split}), plain {p:.4f}, library "
+              f"{l:.4f}, {bounds}")
     print(f"   per forward (3 calls, bf16), device time: kernel "
           f"{main_path['ms']:.4f} ms, plain {main_path['plain_ms']:.4f} ms, "
           f"library {main_path['library_ms']:.4f} ms, bound "
@@ -445,7 +467,13 @@ def main(argv=None) -> int:
         err = (out.float() - ref.float()).abs().max().item()
         w_f = (w.float() * sc[:, None, None, None]).to(dtype)
         b_f = bi.to(dtype)
-        ms, ms_ev = both_ms(lambda: conv3x3_bn_silu(x, w, sc, bi))
+        fn = lambda: conv3x3_bn_silu(x, w, sc, bi)
+        by_kernel = device_times(fn)
+        ms, ms_ev = sum(by_kernel.values()), cuda_ms(fn)
+        if (dtype == torch.float32 and lname == "NHWC"
+                and not PROFILER["dead"]):
+            assert any("conv3x3_tf32_nhwc_kernel" in n
+                       for n in by_kernel), by_kernel
         plain, plain_ev = both_ms(
             lambda: conv3x3_bn_silu_reference(x, w, sc, bi))
         lib, lib_ev = both_ms(lambda: conv_library(x, w_f, b_f))
@@ -454,13 +482,17 @@ def main(argv=None) -> int:
               f"max_abs_err {err:.3g} (rtol {rtol:g}, atol {atol:g})  device "
               f"ms: kernel {ms:.4f} plain {plain:.4f} library {lib:.4f}; "
               f"events ms: kernel {ms_ev:.4f} plain {plain_ev:.4f} library "
-              f"{lib_ev:.4f}; bound {bnd:.5f} ms ({by})")
+              f"{lib_ev:.4f}; {bounds_text(conv_bound, shape, dtype=dtype)}")
         if (dtype == torch.bfloat16 and shape == CONV_SHAPES[0]
                 and lname == "NHWC"):            # the serving path's
             report["conv3x3_bn_silu"] = {
                 "ms": ms, "plain_ms": plain, "bound_ms": bnd,
                 "library_ms": lib, "max_abs_err": err, "bound_by": {by}}
     done(t0)
+
+    # the fp32 kernels' launches on the entry points' paths (phases 4-15)
+    dual_cross_attention.tf32_launches = 0
+    conv3x3_bn_silu.tf32_launches = 0
 
     t0 = phase("4a tiny model: engine on the card vs on the CPU (fp32)")
     tiny = build_model(tiny_icafusion_config(),
@@ -689,6 +721,10 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": "/".join(sorted(r["bound_by"])),
             "library_ms": r["library_ms"]})
+    tf32 = {"dual_cross_attention": dual_cross_attention.tf32_launches,
+            "conv3x3_bn_silu": conv3x3_bn_silu.tf32_launches}
+    print(f"   fp32 launches on the 3xTF32 kernels in phases 4-15: {tf32}")
+    assert all(tf32.values()), tf32
     print(f"== total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -51,10 +51,41 @@
 //     16 pixels' 2 KB contiguously).
 //   185.6 KB of shared memory, one block per SM.
 //
-// bf16 NCHW and fp32 (either layout) keep the first design, which is not on
-// the serving path: a weight pre-pass launch rearranges w once per call;
-// persistent blocks copy it to shared memory, stage one 16 x 16-pixel tile
-// with its halo (masking the edge themselves), and multiply:
+// fp32 NHWC, the fp32 paths' layout (the Evaluator, cli.val, cli.detect)
+// (conv3x3_tf32_nhwc_kernel), one launch, on tensor cores at fp32 accuracy
+// through the 3xTF32 split: each operand x = big + small, big = tf32(x),
+// small = tf32(x - big), and a b taken as small_a big_b + big_a small_b +
+// big_a big_b in fp32 accumulators. Bound: operations at 495 / 3 = 165
+// TFLOP/s, 0.0458 ms at (4, 64, 160, 160) against bytes' 0.016:
+//   - B, the weights, must lie in shared memory with both halves: 295 KB
+//     for all 64 output channels, more than a block may have. So a block
+//     owns 32 output channels (147.5 KB of split weights, staged once from
+//     w's order, no pre-pass launch), blocks 2i and 2i + 1 take the two
+//     halves of the same tiles, and the second read of each halo comes
+//     from L2;
+//   - persistent blocks walk 8 x 16-pixel tiles. Thread 0 loads half halos
+//     (32 channels: one 128-byte swizzle box of 10 x 18 pixels, 22.5 KB) by
+//     TMA into a ring of 3 with full/empty mbarriers, two ahead; the zero
+//     fill is the conv's padding and the ragged edge. No producer warp: a
+//     ninth warp caps the threads at 168 registers, and the accumulators
+//     spill;
+//   - wgmma m64n32k8 .tf32, A from registers: warpgroup wg computes rows
+//     4 wg .. 4 wg + 3 of the tile, a warp 16 pixels of a row; a lane reads
+//     4 channels of a pixel of the shifted window as one 16-byte chunk,
+//     splits them in registers (cvt.rna and a subtraction each) and feeds
+//     two k8 steps, 3 products each, from double-buffered fragments. The
+//     tensor cores' fp32 accumulation truncates, so each tap starts fresh
+//     accumulators whose sums the CUDA cores add to the pixel's total,
+//     rounding to nearest; one for each of the three products, so that
+//     three chains of these small wgmmas run at once;
+//   - epilogue from registers: scale * acc + bias and the exact fp32 SiLU,
+//     8-byte stores. 214.3 KB of shared memory, one block per SM.
+//
+// bf16 NCHW and fp32 NCHW keep the first design (no caller passes NCHW:
+// every model runs channels_last on the card): a weight pre-pass launch
+// rearranges w once per call; persistent blocks copy it to shared memory,
+// stage one 16 x 16-pixel tile with its halo (masking the edge
+// themselves), and multiply:
 //   bf16  WMMA 16x16x16 tensor-core fragments, fp32 accumulation; each of 8
 //         warps computes two 16-pixel rows by 64 channels.
 //   fp32  CUDA-core FMAs, no TF32 (so it matches a plain version run with
@@ -327,7 +358,294 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
 }  // namespace nhwc
 
 // ===========================================================================
-// bf16 NCHW and fp32: the first design (weight pre-pass, WMMA / CUDA cores)
+// fp32 NHWC: TMA + wgmma .tf32 with the 3xTF32 split, persistent
+// ===========================================================================
+
+namespace nhwc32 {
+
+constexpr int kTH = 8, kTW = 16;                   // output tile (pixels)
+constexpr int kHH = kTH + 2, kHW = kTW + 2;        // with its halo: 10 x 18
+constexpr int kHalfC = 32;                         // channels a TMA box (128 B)
+constexpr int kHaloBytes = kHH * kHW * kHalfC * 4; // 23040: half a halo
+constexpr int kStageBytes = 23 * 1024;             // swizzle atoms are 1 KB
+constexpr int kStages = 3;
+constexpr int kCo = 32;                            // output channels a block
+constexpr int kWTile = kCo * 128;                  // a (tap, half) tile: 32 x 32
+constexpr int kWBytes = kTaps * 2 * kWTile;        // 73728, each of big, small
+// Two warpgroups and no producer warp: a ninth warp would put three warps
+// on one SM sub-partition and cap every thread at 168 registers, and the
+// kernel then spills its accumulators; thread 0 issues the loads.
+constexpr int kThreads = 256;
+constexpr int kUnits = 2 * kTaps * 2;              // (half, tap, 16 channels)
+constexpr size_t kSmem = 1024 /* alignment slack */ + 2 * kWBytes +
+                         kStages * kStageBytes + 2 * kCo * 4 +
+                         2 * kStages * 8;
+static_assert(kHaloBytes <= kStageBytes, "half a halo fits a stage");
+static_assert(kSmem <= 232448, "shared memory");
+
+struct Geometry {
+  int H, W, tiles_w, tiles_h, tiles;
+};
+
+__device__ __forceinline__ void tile_origin(int t, const Geometry& g, int* b,
+                                            int* h0, int* w0) {
+  *w0 = (t % g.tiles_w) * kTW;
+  t /= g.tiles_w;
+  *h0 = (t % g.tiles_h) * kTH;
+  *b = t / g.tiles_h;
+}
+
+// The pixel column of fragment row g (row g + 8 is 8 columns on): rows g
+// and g + 1, which share a quarter-warp's 16-byte reads, lie 4 pixels
+// apart, so that under the 128-byte swizzle their chunks fall in distinct
+// halves of the 32 banks for every tap shift.
+__device__ __forceinline__ int frag_col(int g) { return (g >> 1) + 4 * (g & 1); }
+
+// K order. A unit is 16 channels of one half and one tap, two k8 steps:
+// lane t reads the 4 channels 4t .. 4t + 3 of its pixel as one 16-byte
+// chunk, step 0 takes 4t and 4t + 1 as its k indices t and t + 4, step 1
+// 4t + 2 and 4t + 3. The weights are stored in the same order: position
+// k of k8 step kk (0..3 in a half: 2 units) holds this channel of the half.
+__device__ __forceinline__ int weight_k(int ci_in_half) {
+  const int grp = ci_in_half >> 4, r = ci_in_half & 15;
+  return 8 * (2 * grp + ((r >> 1) & 1)) + (r >> 2) + 4 * (r & 1);
+}
+
+// The weights of output channels co0 .. co0 + 31, split: for each tap and
+// channel half a K-major 32 x 32 tile [co][k] of 128-byte rows, chunk c of
+// row co at (c ^ (co & 7)) (wgmma's 128-byte swizzle), the small halves
+// kWBytes after the big ones. Read once a block in w's (co, ci, kh, kw)
+// order, so there is no pre-pass launch.
+__device__ __forceinline__ void stage_weights_tf32(const float* __restrict__ w,
+                                                   int co0, unsigned char* ws) {
+  const float* wc = w + (size_t)co0 * kC * kTaps;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kCo * kC * kTaps; e += kThreads) {
+    const int co = e / (kC * kTaps), ci = (e / kTaps) % kC, tap = e % kTaps;
+    const int k = weight_k(ci & 31);
+    const int off = (tap * 2 + (ci >> 5)) * kWTile + co * 128 +
+                    (((k >> 2) ^ (co & 7)) << 4) + (k & 3) * 4;
+    uint32_t big, small;
+    split_tf32(wc[e], big, small);
+    *reinterpret_cast<uint32_t*>(ws + off) = big;
+    *reinterpret_cast<uint32_t*>(ws + kWBytes + off) = small;
+  }
+}
+
+// Blocks 2i and 2i + 1 own output channels 0..31 and 32..63 and walk the
+// same 8 x 16-pixel tiles (i, i + blocks / 2, ...), so the second read of a
+// halo comes from L2. A stage holds item m, half m % 2 of the block's tile
+// m / 2 (32 channels); thread 0 keeps two items ahead in flight.
+// Warpgroup wg computes tile rows 4 wg .. 4 wg + 3, one row of 16 pixels a
+// warp.
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_tf32_nhwc_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const float* __restrict__ w,      // (64, 64, 3, 3)
+                         const float* __restrict__ scale,  // (64,)
+                         const float* __restrict__ bias,   // (64,)
+                         float* __restrict__ out,          // (B, H, W, 64)
+                         Geometry g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* ws = smem_raw + (base - raw);
+  const unsigned char* ring = ws + 2 * kWBytes;
+  float* s_scale = reinterpret_cast<float*>(ws + 2 * kWBytes +
+                                            kStages * kStageBytes);
+  float* s_bias = s_scale + kCo;
+  const uint32_t full = smem_u32(s_bias + kCo), empty = full + 8 * kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int co0 = (blockIdx.x & 1) * kCo;
+  const int walkers = gridDim.x >> 1, first = blockIdx.x >> 1;
+
+  auto load_item = [&](int m) {   // thread 0; nothing past the last tile
+    const int t = first + (m >> 1) * walkers;
+    if (t >= g.tiles) return;
+    int b, h0, w0;
+    tile_origin(t, g, &b, &h0, &w0);
+    const int s = m % kStages;
+    mbar_expect_tx(full + 8 * s, kHaloBytes);
+    tma_load_4d(base + 2 * kWBytes + s * kStageBytes, &xmap, full + 8 * s,
+                kHalfC * (m & 1), w0 - 1, h0 - 1, b);
+  };
+  if (tid == 0) {
+    tma_prefetch_map(&xmap);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads / 32);   // one arrival per warp
+    }
+    mbar_init_fence();
+    for (int m = 0; m < kStages; ++m) load_item(m);
+  }
+
+  stage_weights_tf32(w, co0, ws);
+  if (tid < kCo) {
+    s_scale[tid] = scale[co0 + tid];
+    s_bias[tid] = bias[co0 + tid];
+  }
+  fence_proxy_async();   // the weights are read by wgmma (async proxy)
+  __syncthreads();
+
+  const int row = 4 * (warp >> 2) + (warp & 3);   // the warp's tile row
+  const int qg = lane >> 2, qt = lane & 3;
+  const int col = frag_col(qg);
+
+  // A of unit u (16 channels 16 (u & 1) .. of tap (u % 18) / 2 in half
+  // u / 18): rows qg, qg + 8 (pixels col, col + 8 of the warp's row) at
+  // channels 4 qt .., split into big and small fragments of its two k8 steps
+  auto load_unit = [&](int s, int u, uint32_t (&ab)[2][4],
+                       uint32_t (&as)[2][4]) {
+    const int tap = (u % 18) >> 1, c = 4 * (u & 1) + qt;
+    const unsigned char* buf = ring + s * kStageBytes;
+    float4 v[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int p = (row + tap / 3) * kHW + col + 8 * hf + tap % 3;
+      v[hf] = *reinterpret_cast<const float4*>(buf + p * 128 +
+                                               ((c ^ (p & 7)) << 4));
+    }
+    split_tf32(v[0].x, ab[0][0], as[0][0]);
+    split_tf32(v[1].x, ab[0][1], as[0][1]);
+    split_tf32(v[0].y, ab[0][2], as[0][2]);
+    split_tf32(v[1].y, ab[0][3], as[0][3]);
+    split_tf32(v[0].z, ab[1][0], as[1][0]);
+    split_tf32(v[1].z, ab[1][1], as[1][1]);
+    split_tf32(v[0].w, ab[1][2], as[1][2]);
+    split_tf32(v[1].w, ab[1][3], as[1][3]);
+  };
+  // This warp has read item m. Thread 0 then refills the stage of item
+  // m - 1, which every warp has (nearly always) released by now, with
+  // item m + 2.
+  auto release = [&](int m) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (m % kStages));
+    if (tid == 0 && m > 0) {
+      mbar_wait(empty + 8 * ((m - 1) % kStages), ((m - 1) / kStages) & 1);
+      load_item(m + 2);
+    }
+  };
+
+  // The tensor cores' fp32 accumulation truncates at each product: over a
+  // pixel's 216 products that biases it by about 4e-5 of its size. So each
+  // tap's products start fresh accumulators, whose sums the CUDA cores add
+  // to `total`, rounding to nearest. Its three products go to three
+  // accumulators (small_a big_b, big_a small_b, big_a big_b): a chain of
+  // m64n32k8 products, each too small to hide its latency, runs at a
+  // fraction of the rate, and three chains (two taps' sets in turn) keep
+  // the tensor cores fed.
+  int j = 0;   // tiles done: stages 2j and 2j + 1 are this tile's halves
+  for (int t = first; t < g.tiles; t += walkers, ++j) {
+    float acc[2][3][16], total[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) total[i] = 0.f;
+    auto add_tap = [&](int set) {   // small sums first
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        total[i] += (acc[set][0][i] + acc[set][1][i]) + acc[set][2][i];
+    };
+    uint32_t ab[2][2][4], as[2][2][4];   // [A buffer][k8 step][fragment]
+    int s = (2 * j) % kStages;
+    mbar_wait(full + 8 * s, ((2 * j) / kStages) & 1);
+    __syncwarp();   // wgmma needs the whole warp converged
+    load_unit(s, 0, ab[0], as[0]);
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {   // unit u: half u / 18, tap (u % 18) / 2
+      const int tap = (u % 18) >> 1, hh = u / 18, set = (u >> 1) & 1;
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const uint32_t wb = base + (tap * 2 + hh) * kWTile +
+                            (2 * (u & 1) + st) * 32;
+        const int sd = (u & 1) | st;   // 0: a tap's sums start afresh
+        wgmma_m64n32k8_tf32_rs(acc[set][0], as[u & 1][st], desc_sw128(wb), sd);
+        wgmma_m64n32k8_tf32_rs(acc[set][1], ab[u & 1][st],
+                               desc_sw128(wb + kWBytes), sd);
+        wgmma_m64n32k8_tf32_rs(acc[set][2], ab[u & 1][st], desc_sw128(wb), sd);
+      }
+      wgmma_commit();
+      if (u > 0) {
+        wgmma_wait<1>();   // unit u - 1 is done with its A buffer
+        if ((u & 1) == 0) add_tap(set ^ 1);   // ... and ended its tap
+      }
+      if (u + 1 < kUnits) {
+        if (u + 1 == kUnits / 2) {   // the first half is read: the second
+          release(2 * j);
+          s = (2 * j + 1) % kStages;
+          mbar_wait(full + 8 * s, ((2 * j + 1) / kStages) & 1);
+          __syncwarp();
+        }
+        load_unit(s, u + 1, ab[(u + 1) & 1], as[(u + 1) & 1]);
+      }
+    }
+    release(2 * j + 1);
+    wgmma_wait<0>();
+    add_tap(((kUnits - 1) >> 1) & 1);
+
+    // Epilogue. total[4jj + 2hf + e]: pixel col + 8 hf, channel
+    // co0 + 8 jj + 2 qt + e; written as 8-byte pairs.
+    int b, h0, w0;
+    tile_origin(t, g, &b, &h0, &w0);
+    const int h = h0 + row;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int wcol = w0 + col + 8 * hf;
+      if (h >= g.H || wcol >= g.W) continue;
+      float* dst = out + (((size_t)b * g.H + h) * g.W + wcol) * kC + co0;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = 8 * jj + 2 * qt;
+        *reinterpret_cast<float2*>(dst + c) = make_float2(
+            silu(fmaf(total[4 * jj + 2 * hf], s_scale[c], s_bias[c])),
+            silu(fmaf(total[4 * jj + 2 * hf + 1], s_scale[c + 1],
+                      s_bias[c + 1])));
+      }
+    }
+  }
+}
+
+bool g_opt_in[kMaxDevices];
+int g_sms[kMaxDevices];
+
+cudaError_t launch(const void* x, const void* w, const float* scale,
+                   const float* bias, void* out, int B, int H, int W,
+                   cudaStream_t st) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  err = opt_in_smem(conv3x3_tf32_nhwc_kernel, kSmem, g_opt_in);
+  if (err != cudaSuccess) return err;
+  if (g_sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return err;
+  }
+  CUtensorMap xmap;
+  const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kC * 4, (cuuint64_t)W * kC * 4,
+                                 (cuuint64_t)H * W * kC * 4};
+  const cuuint32_t box[4] = {kHalfC, kHW, kHH, 1};
+  err = encode_f32_map(&xmap, x, 4, dims, strides, box);
+  if (err != cudaSuccess) return err;
+  Geometry g;
+  g.H = H;
+  g.W = W;
+  g.tiles_w = (W + kTW - 1) / kTW;
+  g.tiles_h = (H + kTH - 1) / kTH;
+  g.tiles = B * g.tiles_w * g.tiles_h;
+  const int walkers = g.tiles < g_sms[dev] / 2 ? g.tiles : g_sms[dev] / 2;
+  conv3x3_tf32_nhwc_kernel<<<2 * walkers, kThreads, kSmem, st>>>(
+      xmap, static_cast<const float*>(w), scale, bias,
+      static_cast<float*>(out), g);
+  return cudaGetLastError();
+}
+
+}  // namespace nhwc32
+
+// ===========================================================================
+// bf16 and fp32 NCHW: the first design (weight pre-pass, WMMA / CUDA cores)
 // ===========================================================================
 
 constexpr int kThreads = 256;              // 8 warps
@@ -345,12 +663,10 @@ static_assert(8 * 16 * kScrLd * 4 <= kBfIn * 2, "scratch fits in the tile");
 // fp32: input [ci][kHH][kHW], weights [tap][ci][co]
 constexpr size_t kF32Smem = (size_t)(kC * kHalo + kTaps * kC * kC) * 4;
 
-// element (b, c, h, w) of a (B, 64, H, W) tensor, NCHW or NHWC in memory
-template <bool NHWC>
+// element (b, c, h, w) of a (B, 64, H, W) tensor, NCHW in memory
 __device__ __forceinline__ size_t at(int b, int c, int h, int w, int H,
                                      int W) {
-  return NHWC ? (((size_t)b * H + h) * W + w) * kC + c
-              : (((size_t)b * kC + c) * H + h) * W + w;
+  return (((size_t)b * kC + c) * H + h) * W + w;
 }
 
 struct Tile {
@@ -429,44 +745,13 @@ __device__ __forceinline__ void stage_tile_nchw(const T* __restrict__ x,
       const int p = e % kHalo, ci = e / kHalo;
       const int h = tl.h0 + p / kHW - 1, ww = tl.w0 + p % kHW - 1;
       v[u] = (h >= 0 && h < H && ww >= 0 && ww < W)
-                 ? x[at<false>(tl.b, ci, h, ww, H, W)] : T(0);   // bf16 +0 is 0
+                 ? x[at(tl.b, ci, h, ww, H, W)] : T(0);   // bf16 +0 is 0
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int e = base + u * kThreads + threadIdx.x;
       const int p = e % kHalo;
       xs[dst(e / kHalo, p / kHW, p % kHW)] = v[u];
-    }
-  }
-}
-
-// NHWC: 16 bytes of one pixel's channels (from channel ci on) per thread;
-// put(v, ci, r, c) stores them.
-template <typename T, typename Put>
-__device__ __forceinline__ void stage_tile_nhwc(const T* __restrict__ x,
-                                                const Tile& tl, int H, int W,
-                                                Put put) {
-  constexpr int kVec = 16 / sizeof(T), kChunks = kC / kVec;
-  constexpr int kItems = kHalo * kChunks;   // e = pixel * kChunks + chunk
-  constexpr int kB = (kItems + kThreads - 1) / kThreads;   // one round
-  for (int base = 0; base < kItems; base += kB * kThreads) {
-    uint4 v[kB];
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int e = base + u * kThreads + threadIdx.x;
-      const int p = e / kChunks, ci = (e % kChunks) * kVec;
-      const int h = tl.h0 + p / kHW - 1, ww = tl.w0 + p % kHW - 1;
-      v[u] = (e < kItems && h >= 0 && h < H && ww >= 0 && ww < W)
-                 ? *reinterpret_cast<const uint4*>(
-                       x + at<true>(tl.b, ci, h, ww, H, W))
-                 : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int e = base + u * kThreads + threadIdx.x;
-      if (e >= kItems) break;
-      const int p = e / kChunks;
-      put(v[u], (e % kChunks) * kVec, p / kHW, p % kHW);
     }
   }
 }
@@ -539,7 +824,7 @@ conv3x3_bf16_nchw_kernel(const unsigned short* __restrict__ x,  // (B, 64, H, W)
         for (int j = 0; j < 32; ++j) {
           const int e = lane + 32 * j, m = e & 15, co = e >> 4;
           if (tl.w0 + m < W)
-            out[at<false>(tl.b, co, h, tl.w0 + m, H, W)] = __float2bfloat16(
+            out[at(tl.b, co, h, tl.w0 + m, H, W)] = __float2bfloat16(
                 silu(fmaf(scr[m * kScrLd + co], scale[co], bias[co])));
         }
       }
@@ -549,9 +834,8 @@ conv3x3_bf16_nchw_kernel(const unsigned short* __restrict__ x,  // (B, 64, H, W)
   }
 }
 
-template <bool NHWC>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3x3_f32_kernel(const float* __restrict__ x,
+conv3x3_f32_nchw_kernel(const float* __restrict__ x,
                    const float* __restrict__ w,             // packed
                    const float* __restrict__ scale,
                    const float* __restrict__ bias, float* __restrict__ out,
@@ -567,16 +851,9 @@ conv3x3_f32_kernel(const float* __restrict__ x,
 
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const Tile tl = tile_of(t, tiles_h, tiles_w);
-    auto dst = [](int ci, int r, int c) { return (ci * kHH + r) * kHW + c; };
-    if constexpr (NHWC)   // 4 channels of a pixel, one plane each
-      stage_tile_nhwc(x, tl, H, W, [&](uint4 v, int ci, int r, int c) {
-        xs[dst(ci, r, c)] = __uint_as_float(v.x);
-        xs[dst(ci + 1, r, c)] = __uint_as_float(v.y);
-        xs[dst(ci + 2, r, c)] = __uint_as_float(v.z);
-        xs[dst(ci + 3, r, c)] = __uint_as_float(v.w);
-      });
-    else
-      stage_tile_nchw(x, xs, tl, H, W, dst);
+    stage_tile_nchw(x, xs, tl, H, W, [](int ci, int r, int c) {
+      return (ci * kHH + r) * kHW + c;
+    });
     __syncthreads();
 
     float acc[8][8];
@@ -621,7 +898,7 @@ conv3x3_f32_kernel(const float* __restrict__ x,
         if (ww >= W) break;
 #pragma unroll
         for (int k = 0; k < 8; ++k)
-          out[at<NHWC>(tl.b, cog * 8 + k, h, ww, H, W)] =
+          out[at(tl.b, cog * 8 + k, h, ww, H, W)] =
               silu(fmaf(acc[j][k], s[k], bb[k]));
       }
     }
@@ -680,15 +957,15 @@ cudaError_t launch(Kernel kernel, size_t smem, int* cache, const void* x,
   return cudaGetLastError();
 }
 
-int g_grid[3][kMaxDevices];   // [bf16 NCHW, fp32 NCHW, fp32 NHWC][device]
+int g_grid[2][kMaxDevices];   // [bf16 NCHW, fp32 NCHW][device]
 
 }  // namespace
 
 // x, out: (B, 64, H, W), bf16 (is_bf16) or fp32, both dense in NCHW or both
 // in NHWC (channels_last, nhwc = 1), x 16-byte aligned; w: (64, 64, 3, 3)
 // in x's dtype, 16-byte aligned; packed: a 16-byte aligned scratch of
-// 64 * 64 * 9 elements of x's dtype (not read for bf16 NHWC, may be null
-// there); scale, bias: (64,) fp32.
+// 64 * 64 * 9 elements of x's dtype for the NCHW paths (not read for NHWC,
+// may be null there); scale, bias: (64,) fp32.
 extern "C" int icaf_conv3x3_bn_silu(const void* x, const void* w,
                                     void* packed, const void* scale,
                                     const void* bias, void* out, int B,
@@ -698,7 +975,9 @@ extern "C" int icaf_conv3x3_bn_silu(const void* x, const void* w,
   auto st = static_cast<cudaStream_t>(stream);
   auto s = static_cast<const float*>(scale);
   auto b = static_cast<const float*>(bias);
-  if (is_bf16 && nhwc) return nhwc::launch(x, w, s, b, out, B, H, W, st);
+  if (nhwc)
+    return is_bf16 ? nhwc::launch(x, w, s, b, out, B, H, W, st)
+                   : nhwc32::launch(x, w, s, b, out, B, H, W, st);
   const int tiles_h = (H + kTH - 1) / kTH, tiles_w = (W + kTW - 1) / kTW;
   const int tiles = B * tiles_h * tiles_w;
   using u16 = unsigned short;
@@ -706,11 +985,7 @@ extern "C" int icaf_conv3x3_bn_silu(const void* x, const void* w,
     return launch<u16, BfWeightIndex, __nv_bfloat16>(
         conv3x3_bf16_nchw_kernel, kBfSmem, g_grid[0], x, w, packed, s, b, out,
         H, W, tiles_h, tiles_w, tiles, st);
-  if (nhwc)
-    return launch<float, F32WeightIndex, float>(
-        conv3x3_f32_kernel<true>, kF32Smem, g_grid[2], x, w, packed, s, b,
-        out, H, W, tiles_h, tiles_w, tiles, st);
   return launch<float, F32WeightIndex, float>(
-      conv3x3_f32_kernel<false>, kF32Smem, g_grid[1], x, w, packed, s, b, out,
+      conv3x3_f32_nchw_kernel, kF32Smem, g_grid[1], x, w, packed, s, b, out,
       H, W, tiles_h, tiles_w, tiles, st);
 }

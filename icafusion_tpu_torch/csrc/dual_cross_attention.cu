@@ -55,17 +55,52 @@
 //   einsum path (icafusion_tpu/nn/fusion.py:237-266) and the plain version
 //   do.
 //
-// fp32 (the card's exact comparator, the fp32 Evaluator): CUDA cores, no
-// TF32, the first design:
-//   launch 1  a tiled shared-memory GEMM (64 x 64 tiles, 4 x 4 outputs per
-//             thread), one grid z-slice per projection, into an fp32 scratch
-//             (6, B, h, N, dk);
-//   launch 2  one block per (64-query tile, head x value slice, batch x
-//             direction) runs an online softmax over 64-key tiles of K and
-//             V staged in shared memory; four threads share a query row.
-//             Above dk 128 the value columns are split across blocks as in
-//             bf16, so that the staged tiles stay under the 227 KB a block
-//             may opt in to (177 KB at dk 256).
+// fp32 (the card's exact comparator, the fp32 Evaluator, cli.val and
+// cli.detect): the same two launches on tensor cores, at fp32 accuracy
+// through the 3xTF32 split. Each operand x = big + small with big =
+// tf32(x) and small = tf32(x - big); a b is taken as small_a big_b +
+// big_a small_b + big_a big_b in fp32 accumulators (the small products
+// first, as CUTLASS's fast-fp32 path adds them), within a few fp32 ulps of
+// the exact product. Bound: operations at 495 / 3 = 165 TFLOP/s, 3.06
+// GFLOP a flagship pair (0.074 ms at B = 4); bytes do not bind (16 us).
+//   launch 1  projections_tf32_kernel: proj's GEMM grid with fp32 tiles.
+//             Thread 0 loads 128 x 32 tiles of X and W (a 128-byte swizzle
+//             row holds 32 fp32) by TMA into a 4-stage ring, 48 KB a stage;
+//             X rows and W rows are both K-major, the only layout wgmma
+//             .tf32 takes. wgmma reads B only from shared memory, so W's
+//             small half is written there: the two warpgroups split each
+//             arrived W tile where it lies (big in place, small into a twin
+//             of the same layout, one elementwise pass over 16 KB). X is
+//             A, from registers: each thread reads its fragments (conflict-
+//             free 4-byte reads of the swizzled tile) and splits them in
+//             registers, which spares shared memory the three products'
+//             operand reads; 3 wgmma m64n128k8 a k8 step. The next stage
+//             is split and read while the tensor cores run. Their fp32
+//             accumulation truncates, which over a 2048-wide row biases the
+//             sum past the fp32 gate, so each stage's products start a
+//             fresh accumulator whose sum the CUDA cores add to the total,
+//             rounding to nearest. No producer warp: a ninth warp would put
+//             three on one SM sub-partition and cap every thread at 168
+//             registers (the kernel holds 235). Splitting the weights in a
+//             pre-pass instead would read 33 MB and write 66 MB a call at
+//             the flagship widths, the order of the whole bound at B = 4.
+//             The epilogue adds the bias in fp32 and writes q/k/v
+//             head-major (6, B, h, N, dkp), 8-byte stores.
+//   launch 2  attention_tf32_kernel: the bf16 core's blocks (64 queries, 16
+//             a warp; head x value slice; batch x direction) on mma.sync
+//             m16n8k8 .tf32, the split made in registers (cvt.rna and a
+//             subtraction a value). K and V tiles (64 keys, 32 at dkp 256)
+//             by cp.async, double buffered; Q stays in shared memory and is
+//             split again at each key tile. The online softmax runs in
+//             fp32 registers and the logits never reach device memory. The
+//             tf32 accumulator layout (columns 2t, 2t + 1) is not its A
+//             layout (columns t, t + 4): both products take k index t as
+//             element 2t and t + 4 as 2t + 1 of their 8-wide step, which
+//             makes P's accumulator its own A fragment (no shuffle) and each
+//             Q or K fragment pair one 8-byte shared-memory read. dk is
+//             padded with zeros to dkp in {8, 16, 32, 64, 128, 192, 256};
+//             above 128 the value columns are split as in bf16. Shared
+//             memory: 24.6 KB at dkp 8 to 204.8 KB at 192 (169 KB at 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -483,250 +518,470 @@ cudaError_t run_bf16(const void* vis, const void* ir,
 }
 
 // ===========================================================================
-// fp32: CUDA cores (the first design)
+// fp32: 3xTF32 tensor-core products (wgmma projections + mma.sync core)
 // ===========================================================================
 
-struct ProjArgs {
-  const float* x[2];     // vis, ir: (B*N, D)
-  const float* w[6];     // (D, D) torch Linear layout (out, in)
-  const float* b[6];     // (D,)
-  float* qkv;            // (6, B, H, N, dk)
-  int M, N, D, H, dk;    // M = B * N
+namespace proj32 {
+
+constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 4;
+constexpr int kTile = kBM * kBK * 4;        // 16 KB, an X tile or a W tile
+// A stage: the X tile as TMA writes it, the W tile (its big half once
+// split, in place) and W's small half in the same swizzled layout.
+constexpr int kStage = 3 * kTile;
+// Two warpgroups and no producer warp (a ninth warp caps every thread at
+// 168 registers); thread 0 issues the loads.
+constexpr int kThreads = 256;
+constexpr size_t kSmem = 1024 + kStages * kStage + kStages * 8;
+static_assert(kBM == kBN, "one box shape for X and W");
+static_assert(kSmem <= 232448, "shared memory");
+
+struct Out {
+  const float* b[6];
+  float* qkv;   // (6, B, h, N, dkp)
+  int M, N, D, H, dk, dkp;
 };
 
-constexpr int kBM = 64, kBN = 64, kBK = 16, kProjThreads = 256;
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
 
-// out[z][row][col] = sum_k X[row][k] * W_z[col][k] + b_z[col], scattered to
-// the per-head layout. z = 0..5 in the order q_vis k_vis v_vis q_ir k_ir v_ir.
-__global__ void __launch_bounds__(kProjThreads)
-projections_f32_kernel(ProjArgs a) {
-  const int z = blockIdx.z;
-  const float* __restrict__ X = a.x[z / 3];
-  const float* __restrict__ W = a.w[z];
-  const float* __restrict__ bias = a.b[z];
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;      // 4 x 4 outputs each
+__global__ void __launch_bounds__(kThreads, 1)
+projections_tf32_kernel(const __grid_constant__ proj::Maps maps, Out o) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t full = base + kStages * kStage;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int z = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int KT = (o.D + kBK - 1) / kBK;
+  const CUtensorMap* xm = &maps.x[z / 3];
+  const CUtensorMap* wm = &maps.w[z];
 
-  __shared__ __align__(16) float As[kBK][kBM];   // As[k][row]
-  __shared__ __align__(16) float Bs[kBK][kBN];   // Bs[k][col]
-
-  float acc[4][4] = {};
-  const int lrow = tid / 4, lk = (tid % 4) * 4;  // loader: 4 k per thread
-  for (int k0 = 0; k0 < a.D; k0 += kBK) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = k0 + lk + e;
-      const int gm = m0 + lrow, gn = n0 + lrow;
-      As[lk + e][lrow] = (gm < a.M && k < a.D) ? X[(size_t)gm * a.D + k] : 0.f;
-      Bs[lk + e][lrow] = (gn < a.D && k < a.D) ? W[(size_t)gn * a.D + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += ar[i] * br[j];
-    }
-    __syncthreads();
+  auto load = [&](int it) {   // thread 0: k tile it into its stage
+    const int s = it % kStages;
+    mbar_expect_tx(full + 8 * s, 2 * kTile);
+    tma_load_2d(base + s * kStage, xm, full + 8 * s, it * kBK, m0);
+    tma_load_2d(base + s * kStage + kTile, wm, full + 8 * s, it * kBK, n0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(full + 8 * s, 1);
+    mbar_init_fence();
+    for (int it = 0; it < kStages && it < KT; ++it) load(it);
   }
-  const int B = a.M / a.N;
+  __syncthreads();
+
+  // A stage has arrived: split W where it lies (elementwise: its small
+  // half sits a tile further on in the same layout), and load this
+  // thread's A fragments of X, rows r and r + 8 at columns 8 kk + t and
+  // + 4 (chunk c of row r at c ^ (r & 7) under the swizzle: conflict-free),
+  // split in registers. A from registers spares shared memory, which the
+  // three products' operand reads would otherwise saturate, the reads and
+  // writes of X's split.
+  const int r = 64 * (warp >> 2) + 16 * (warp & 3) + g;   // r & 7 == g
+  auto prepare = [&](int it, uint32_t (&ab)[4][4], uint32_t (&as)[4][4]) {
+    const int s = it % kStages;
+    mbar_wait(full + 8 * s, (it / kStages) & 1);
+    uint4* wt = reinterpret_cast<uint4*>(sbase + s * kStage + kTile);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= a.M) continue;
-    const int bb = row / a.N, n = row % a.N;
+    for (int q = 0; q < kTile / 16 / kThreads; ++q) {
+      const int i = tid + q * kThreads;
+      const uint4 v = wt[i];
+      uint4 big, small;
+      split_tf32(__uint_as_float(v.x), big.x, small.x);
+      split_tf32(__uint_as_float(v.y), big.y, small.y);
+      split_tf32(__uint_as_float(v.z), big.z, small.z);
+      split_tf32(__uint_as_float(v.w), big.w, small.w);
+      wt[i] = big;
+      wt[i + kTile / 16] = small;
+    }
+    fence_proxy_async();   // these writes are read by wgmma (async proxy)
+    const unsigned char* xt = sbase + s * kStage + r * 128 + t * 4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= a.D) continue;
-      const int h = col / a.dk, d = col % a.dk;
-      a.qkv[((((size_t)z * B + bb) * a.H + h) * a.N + n) * a.dk + d] =
-          acc[i][j] + bias[col];
+    for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)   // (r, t), (r + 8, t), (r, t + 4), (r + 8, t + 4)
+        split_tf32(*reinterpret_cast<const float*>(
+                       xt + (e & 1) * 1024 + (((2 * kk + (e >> 1)) ^ g) << 4)),
+                   ab[kk][e], as[kk][e]);
+  };
+
+  // The tensor cores' fp32 accumulation truncates at each product: over
+  // the 768 products of a 2048-wide row that biases q/k/v by about 5e-5 of
+  // their size, which fails the fp32 gate at dk 160 and 256. So each
+  // stage's 12 products start a fresh accumulator, and its sum is added
+  // to `total` on the CUDA cores, which round to nearest. The next stage
+  // is prepared while the tensor cores run.
+  float acc[64], total[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) total[i] = 0.f;
+  auto step = [&](int it, const uint32_t (&ab)[4][4],
+                  const uint32_t (&as)[4][4], uint32_t (&nb)[4][4],
+                  uint32_t (&ns)[4][4]) {
+    const uint32_t wb = base + (it % kStages) * kStage + kTile;
+    const uint32_t wsm = wb + kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {   // small products first
+      wgmma_m64n128k8_tf32_rs(acc, as[kk], desc_sw128(wb + kk * 32), kk != 0);
+      wgmma_m64n128k8_tf32_rs(acc, ab[kk], desc_sw128(wsm + kk * 32), 1);
+      wgmma_m64n128k8_tf32_rs(acc, ab[kk], desc_sw128(wb + kk * 32), 1);
+    }
+    wgmma_commit();
+    if (it + 1 < KT) prepare(it + 1, nb, ns);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] += acc[i];
+    block_sync();   // stage it is read; W of stage it + 1 is split
+    if (tid == 0 && it + kStages < KT) load(it + kStages);
+  };
+  uint32_t ab0[4][4], as0[4][4], ab1[4][4], as1[4][4];
+  prepare(0, ab0, as0);
+  block_sync();   // W's halves are shared by both warpgroups
+  for (int it = 0; it < KT; it += 2) {   // two A buffers in turn
+    step(it, ab0, as0, ab1, as1);
+    if (it + 1 < KT) step(it + 1, ab1, as1, ab0, as0);
+  }
+
+  // total[4j + 2hf + e]: row 64 wg + 16 (warp % 4) + g + 8 hf, column
+  // 8j + 2t + e; written with the bias added, head-major.
+  const int B = o.M / o.N;
+  const float* bias = o.b[z];
+  const size_t head = (size_t)o.N * o.dkp;
+  size_t row_off[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int m = m0 + r + 8 * hf;
+    row_ok[hf] = m < o.M;
+    row_off[hf] = ((size_t)z * B + m / o.N) * o.H * head +
+                  (size_t)(m % o.N) * o.dkp;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    if (c >= o.D) continue;
+    if (o.dk % 2 == 0) {   // c is even: c and c + 1 lie in one head
+      const size_t col_off = (size_t)(c / o.dk) * head + c % o.dk;
+      const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (row_ok[hf])
+          *reinterpret_cast<float2*>(o.qkv + row_off[hf] + col_off) =
+              make_float2(total[4 * j + 2 * hf] + b0,
+                          total[4 * j + 2 * hf + 1] + b1);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (c + e >= o.D) continue;
+        const size_t col_off = (size_t)((c + e) / o.dk) * head + (c + e) % o.dk;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          if (row_ok[hf])
+            o.qkv[row_off[hf] + col_off] =
+                total[4 * j + 2 * hf + e] + bias[c + e];
+      }
     }
   }
 }
 
-struct AttnArgs {
-  const float* qkv;      // (6, B, H, N, dk)
-  float* out[2];         // out_vis, out_ir: (B, N, D)
+}  // namespace proj32
+
+namespace flash32 {
+
+constexpr int kBQ = 64, kThreads = 128;
+
+// keys a tile: 32 at dkp 256, so that Q and two K and V tiles fit
+template <int DKP>
+__host__ __device__ constexpr int kv_tile() { return DKP > 192 ? 32 : 64; }
+// Row pitches in floats. Q and K fragments are 8-byte reads of rows g at
+// column 2t: a pitch of 8 mod 16 puts a half-warp's 16 reads on 32
+// distinct banks. V fragments are 4-byte reads of rows 2t and 2t + 1 at
+// column g: a pitch of 4 mod 8 does the same for a warp. Rows stay 16-byte
+// aligned for cp.async.
+template <int DKP>
+__host__ __device__ constexpr int ld() { return DKP + (DKP % 16 == 0 ? 8 : 16); }
+template <int DKP>
+__host__ __device__ constexpr int ldv() { return flash::value_cols(DKP) + 4; }
+template <int DKP>
+constexpr size_t smem_bytes() {   // Q; K[2]; V[2]
+  return (size_t)(kBQ * ld<DKP>() +
+                  2 * kv_tile<DKP>() * (ld<DKP>() + ldv<DKP>())) * 4;
+}
+
+struct Args {
+  const float* qkv;   // (6, B, H, N, DKP)
+  float* out[2];      // out_vis, out_ir: (B, N, D)
   int B, N, H, dk;
-  float scale;           // 1 / sqrt(dk)
+  float scale_log2;   // log2(e) / sqrt(dk)
 };
-
-constexpr int kBQ = 64, kBKV = 64, kAttnThreads = 256;  // 4 threads / query
-
-template <int DKP>   // dk padded up to 32, 64, 128, 192 or 256
-constexpr int attn_smem_floats() {
-  return 2 * 64 * (DKP + 1) + 64 * (flash::value_cols(DKP) + 1) +
-         64 * (kBKV + 1);
-}
 
 // grid: (ceil(N / 64), H * DKP / DV, B * 2); blockIdx.y = h * slices +
 // value slice; blockIdx.z = b * 2 + direction.
 // direction 0: out_vis = softmax(q_ir k_vis^T) v_vis; 1: out_ir, q_vis k_ir v_ir
 template <int DKP>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_f32_kernel(AttnArgs a) {
-  extern __shared__ float smem[];
-  constexpr int DV = flash::value_cols(DKP);
-  constexpr int LD = DKP + 1;          // padded rows: conflict-free columns
-  constexpr int LDV = DV + 1;
-  float* Qs = smem;                     // [64][LD]
-  float* Ks = Qs + kBQ * LD;            // [64][LD]
-  float* Vs = Ks + kBKV * LD;           // [64][LDV]
-  float* Ps = Vs + kBKV * LDV;          // [64][kBKV + 1]
+__global__ void __launch_bounds__(kThreads)
+attention_tf32_kernel(Args a) {
+  constexpr int DV = flash::value_cols(DKP), BKV = kv_tile<DKP>();
+  constexpr int LD = ld<DKP>(), LDV = ldv<DKP>();
+  extern __shared__ __align__(16) float sf[];
+  float* Qs = sf;                        // [64][LD]
+  float* Ks = Qs + kBQ * LD;             // [2][BKV][LD]
+  float* Vs = Ks + 2 * BKV * LD;         // [2][BKV][LDV]
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int dir = blockIdx.z & 1, b = blockIdx.z >> 1;
   const int h = blockIdx.y / (DKP / DV), c0 = blockIdx.y % (DKP / DV) * DV;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, qr = tid / 4, sub = tid % 4;
-  const int N = a.N, dk = a.dk;
+  const int q0 = blockIdx.x * kBQ, N = a.N;
   const int zq = dir == 0 ? 3 : 0, zk = dir == 0 ? 1 : 4, zv = zk + 1;
-  const size_t head = (size_t)N * dk;
-  const float* Qg = a.qkv + (((size_t)zq * a.B + b) * a.H + h) * head;
-  const float* Kg = a.qkv + (((size_t)zk * a.B + b) * a.H + h) * head;
-  const float* Vg = a.qkv + (((size_t)zv * a.B + b) * a.H + h) * head;
+  auto head = [&](int z) {
+    return a.qkv + (((size_t)z * a.B + b) * a.H + h) * (size_t)N * DKP;
+  };
+  const float *Qg = head(zq), *Kg = head(zk), *Vg = head(zv);
 
-  for (int e = tid; e < kBQ * DKP; e += kAttnThreads) {
-    const int r = e / DKP, d = e % DKP;
-    Qs[r * LD + d] = (q0 + r < N && d < dk) ? Qg[(size_t)(q0 + r) * dk + d] : 0.f;
-  }
-
-  constexpr int KPT = kBKV / 4;        // keys per thread: j = sub + 4 * jj
-  constexpr int DPT = DV / 4;          // output dims per thread: sub + 4 * dd
-  float acc[DPT];
-#pragma unroll
-  for (int dd = 0; dd < DPT; ++dd) acc[dd] = 0.f;
-  float m = -INFINITY, l = 0.f;        // running max; this thread's share of l
-
-  for (int k0 = 0; k0 < N; k0 += kBKV) {
-    __syncthreads();                   // previous tile's K/V/P reads done
-    for (int e = tid; e < kBKV * DKP; e += kAttnThreads) {
-      const int r = e / DKP, d = e % DKP;
-      Ks[r * LD + d] = k0 + r < N && d < dk ? Kg[(size_t)(k0 + r) * dk + d] : 0.f;
+  // `rows` rows of a head from row0, `cols` columns from col0, into a
+  // tile of row pitch ld; zero past N
+  auto load_rows = [&](float* dst, const float* src, int row0, int rows,
+                       int col0, int cols, int ld) {
+    const int chunks = cols / 4;         // 16-byte chunks per row
+    for (int e = tid; e < rows * chunks; e += kThreads) {
+      const int r = e / chunks, c = e % chunks;
+      const bool valid = row0 + r < N;
+      cp_async_16(smem_u32(dst + r * ld + c * 4),
+                  src + (size_t)(valid ? row0 + r : 0) * DKP + col0 + c * 4,
+                  valid);
     }
-    for (int e = tid; e < kBKV * DV; e += kAttnThreads) {
-      const int r = e / DV, d = e % DV;
-      const bool in = k0 + r < N && c0 + d < dk;
-      Vs[r * LDV + d] = in ? Vg[(size_t)(k0 + r) * dk + c0 + d] : 0.f;
+  };
+  auto load_kv = [&](int buf, int row0) {
+    load_rows(Ks + buf * BKV * LD, Kg, row0, BKV, 0, DKP, LD);
+    load_rows(Vs + buf * BKV * LDV, Vg, row0, BKV, c0, DV, LDV);
+  };
+
+  load_rows(Qs, Qg, q0, kBQ, 0, DKP, LD);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  float o[DV / 8][4];
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const float* qrow = Qs + (warp * 16 + g) * LD + 2 * t;   // and 8 rows on
+
+  const int tiles = (N + BKV - 1) / BKV;
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int buf = kt & 1, k0 = kt * BKV;
+    if (kt + 1 < tiles) {   // the next tile loads while this one computes
+      load_kv(buf ^ 1, k0 + BKV);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* Kb = Ks + buf * BKV * LD;
+    const float* Vb = Vs + buf * BKV * LDV;
 
-    float s[KPT];
+    // S = Q K^T in DKP / 8 k8 steps. Within a step, k index t stands for
+    // column 2t and t + 4 for column 2t + 1, in Q and K alike (a dot
+    // product does not depend on the order of its terms), so that each
+    // fragment pair is one 8-byte read.
+    float s[BKV / 8][4];
 #pragma unroll
-    for (int jj = 0; jj < KPT; ++jj) s[jj] = 0.f;
-    for (int d = 0; d < DKP; ++d) {
-      const float qd = Qs[qr * LD + d];
+    for (int nb = 0; nb < BKV / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < KPT; ++jj) s[jj] += qd * Ks[(sub + 4 * jj) * LD + d];
+    for (int kk = 0; kk < DKP / 8; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qrow + 8 * kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(qrow + 8 * LD + 8 * kk);
+      uint32_t qb[4], qs[4];
+      split_tf32(x0.x, qb[0], qs[0]);
+      split_tf32(x1.x, qb[1], qs[1]);
+      split_tf32(x0.y, qb[2], qs[2]);
+      split_tf32(x1.y, qb[3], qs[3]);
+#pragma unroll
+      for (int nb = 0; nb < BKV / 8; ++nb) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            Kb + (8 * nb + g) * LD + 8 * kk + 2 * t);
+        uint32_t kb0, ks0, kb1, ks1;
+        split_tf32(kv.x, kb0, ks0);
+        split_tf32(kv.y, kb1, ks1);
+        mma_3xtf32_1688(s[nb], qb, qs, kb0, kb1, ks0, ks1);
+      }
     }
-    float tmax = -INFINITY;
+
+    // online softmax in the log2 domain; rows g (regs 0, 1) and g + 8 (2, 3)
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int jj = 0; jj < KPT; ++jj) {
-      s[jj] = (k0 + sub + 4 * jj < N) ? s[jj] * a.scale : -INFINITY;
-      tmax = fmaxf(tmax, s[jj]);
+    for (int nb = 0; nb < BKV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = k0 + 8 * nb + 2 * t + (e & 1) < N;
+        s[nb][e] = valid ? s[nb][e] * a.scale_log2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);   // finite: key k0 is valid
+      alpha[r] = exp2f(m_run[r] - m_new);           // 0 on the first tile
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
     }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);        // finite: key k0 is valid
-    const float alpha = expf(m - m_new);       // 0 on the first tile
-    m = m_new;
-    float psum = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < KPT; ++jj) {
-      const float p = expf(s[jj] - m_new);     // 0 for masked keys
-      psum += p;
-      Ps[qr * (kBKV + 1) + sub + 4 * jj] = p;
+    for (int nb = 0; nb < BKV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] = exp2f(s[nb][e] - m_run[e >> 1]);   // 0 for masked keys
+        l_run[e >> 1] += s[nb][e];
+      }
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
     }
-    l = l * alpha + psum;
+
+    // O += P V, one k8 step per 8 keys. k index t stands for key 2t and
+    // t + 4 for key 2t + 1: P's accumulator (columns 2t, 2t + 1 of rows g
+    // and g + 8) is then its A fragment as it lies, with no shuffle, and
+    // V's rows are read in that order.
 #pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) acc[dd] *= alpha;
-    __syncwarp();                      // a query's 4 threads share one warp
-    const int kn = min(kBKV, N - k0);
-    for (int j = 0; j < kn; ++j) {
-      const float p = Ps[qr * (kBKV + 1) + j];
+    for (int nb = 0; nb < BKV / 8; ++nb) {
+      uint32_t pb[4], ps[4];
+      split_tf32(s[nb][0], pb[0], ps[0]);   // (g, key 2t)
+      split_tf32(s[nb][2], pb[1], ps[1]);   // (g + 8, key 2t)
+      split_tf32(s[nb][1], pb[2], ps[2]);   // (g, key 2t + 1)
+      split_tf32(s[nb][3], pb[3], ps[3]);   // (g + 8, key 2t + 1)
+      const float* v = Vb + (8 * nb + 2 * t) * LDV + g;
 #pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) acc[dd] += p * Vs[j * LDV + sub + 4 * dd];
+      for (int i = 0; i < DV / 8; ++i) {
+        uint32_t vb0, vs0, vb1, vs1;
+        split_tf32(v[8 * i], vb0, vs0);
+        split_tf32(v[LDV + 8 * i], vb1, vs1);
+        mma_3xtf32_1688(o[i], pb, ps, vb0, vb1, vs0, vs1);
+      }
     }
+    __syncthreads();   // every warp is done with buf before it is refilled
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  const int q = q0 + qr;
-  if (q >= N) return;
-  float* out = a.out[dir] + ((size_t)b * N + q) * (a.H * dk) + h * dk;
-  const float inv = 1.f / l;
+
 #pragma unroll
-  for (int dd = 0; dd < DPT; ++dd) {
-    const int d = c0 + sub + 4 * dd;
-    if (d < dk) out[d] = acc[dd] * inv;
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const int D = a.H * a.dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + warp * 16 + g + 8 * r;
+    if (q >= N) continue;
+    const float inv = 1.f / l_run[r];
+    float* dst = a.out[dir] + ((size_t)b * N + q) * D + h * a.dk;
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+      const int d = c0 + 8 * i + 2 * t;
+      const float v0 = o[i][2 * r] * inv, v1 = o[i][2 * r + 1] * inv;
+      if (a.dk % 2 == 0) {
+        if (d < a.dk) *reinterpret_cast<float2*>(dst + d) = make_float2(v0, v1);
+      } else {
+        if (d < a.dk) dst[d] = v0;
+        if (d + 1 < a.dk) dst[d + 1] = v1;
+      }
+    }
   }
 }
 
 template <int DKP>
-cudaError_t launch_attention_f32(const AttnArgs& a, cudaStream_t stream) {
-  constexpr int smem = attn_smem_floats<DKP>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_f32_kernel<DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  static bool opted[kMaxDevices];
+  constexpr size_t smem = smem_bytes<DKP>();
+  static_assert(smem <= 232448, "shared memory");
+  cudaError_t err = opt_in_smem(attention_tf32_kernel<DKP>, smem, opted);
   if (err != cudaSuccess) return err;
   dim3 grid((a.N + kBQ - 1) / kBQ, a.H * (DKP / flash::value_cols(DKP)),
             a.B * 2);
-  attention_f32_kernel<DKP><<<grid, kAttnThreads, smem, stream>>>(a);
+  attention_tf32_kernel<DKP><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t run_f32(const void* vis, const void* ir, const void* const* w,
-                    const void* const* bs, void* qkv, void* out_vis,
-                    void* out_ir, int B, int N, int D, int H,
-                    cudaStream_t st) {
-  ProjArgs p;
-  p.x[0] = static_cast<const float*>(vis);
-  p.x[1] = static_cast<const float*>(ir);
-  for (int i = 0; i < 6; ++i) {
-    p.w[i] = static_cast<const float*>(w[i]);
-    p.b[i] = static_cast<const float*>(bs[i]);
-  }
-  p.qkv = static_cast<float*>(qkv);
-  p.M = B * N;
-  p.N = N;
-  p.D = D;
-  p.H = H;
-  p.dk = D / H;
-  dim3 grid((p.M + kBM - 1) / kBM, (p.D + kBN - 1) / kBN, 6);
-  projections_f32_kernel<<<grid, kProjThreads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
+}  // namespace flash32
+
+bool g_proj32_opt_in[kMaxDevices];
+
+cudaError_t run_tf32(const void* vis, const void* ir, const void* const* w,
+                     const void* const* bs, void* qkv, void* out_vis,
+                     void* out_ir, int B, int N, int D, int H, int dkp,
+                     cudaStream_t st) {
+  const int M = B * N, dk = D / H;
+  if (D % 4 != 0 || dkp < dk ||
+      (dkp != 8 && dkp != 16 && dkp != 32 && dkp != 64 && dkp != 128 &&
+       dkp != 192 && dkp != 256))
+    return cudaErrorInvalidValue;
+  proj::Maps maps;
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)M};
+  const cuuint64_t wdims[2] = {(cuuint64_t)D, (cuuint64_t)D};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 4};
+  const cuuint32_t box[2] = {proj32::kBK, proj32::kBM};
+  const void* xs[2] = {vis, ir};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i)
+    err = encode_f32_map(&maps.x[i], xs[i], 2, xdims, strides, box);
+  for (int i = 0; i < 6 && err == cudaSuccess; ++i)
+    err = encode_f32_map(&maps.w[i], w[i], 2, wdims, strides, box);
   if (err != cudaSuccess) return err;
-  AttnArgs a;
-  a.qkv = p.qkv;
+  err = opt_in_smem(proj32::projections_tf32_kernel, proj32::kSmem,
+                    g_proj32_opt_in);
+  if (err != cudaSuccess) return err;
+  proj32::Out o;
+  for (int i = 0; i < 6; ++i) o.b[i] = static_cast<const float*>(bs[i]);
+  o.qkv = static_cast<float*>(qkv);
+  o.M = M;
+  o.N = N;
+  o.D = D;
+  o.H = H;
+  o.dk = dk;
+  o.dkp = dkp;
+  dim3 grid((D + proj32::kBN - 1) / proj32::kBN,
+            (M + proj32::kBM - 1) / proj32::kBM, 6);
+  proj32::projections_tf32_kernel<<<grid, proj32::kThreads, proj32::kSmem,
+                                    st>>>(maps, o);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  flash32::Args a;
+  a.qkv = o.qkv;
   a.out[0] = static_cast<float*>(out_vis);
   a.out[1] = static_cast<float*>(out_ir);
   a.B = B;
   a.N = N;
   a.H = H;
-  a.dk = p.dk;
-  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(p.dk)));
-  if (a.dk <= 32) return launch_attention_f32<32>(a, st);
-  if (a.dk <= 64) return launch_attention_f32<64>(a, st);
-  if (a.dk <= 128) return launch_attention_f32<128>(a, st);
-  if (a.dk <= 192) return launch_attention_f32<192>(a, st);
-  if (a.dk <= 256) return launch_attention_f32<256>(a, st);
-  return cudaErrorInvalidValue;
+  a.dk = dk;
+  a.scale_log2 = static_cast<float>(1.4426950408889634 /
+                                    std::sqrt(static_cast<double>(dk)));
+  switch (dkp) {
+    case 8: return flash32::launch<8>(a, st);
+    case 16: return flash32::launch<16>(a, st);
+    case 32: return flash32::launch<32>(a, st);
+    case 64: return flash32::launch<64>(a, st);
+    case 128: return flash32::launch<128>(a, st);
+    case 192: return flash32::launch<192>(a, st);
+    default: return flash32::launch<256>(a, st);
+  }
 }
 
 }  // namespace
 
 // weights / biases: host arrays of six device pointers each, in the order
-// q_vis k_vis v_vis q_ir k_ir v_ir. qkv: a scratch of (6, B, H, N, dkp):
-// fp32 with dkp = dk, or bf16 with dkp one of 16, 32, 64, 128, 192, 256 at
-// least dk and the padding zeroed (the caller picks it: BF16_DK_PADS in
-// kernels/cross_attention.py). dk <= 256. bf16 needs D % 8 == 0 and every
-// token and weight pointer 16-byte aligned (TMA).
+// q_vis k_vis v_vis q_ir k_ir v_ir. qkv: a scratch of (6, B, H, N, dkp) in
+// the tokens' dtype, dkp at least dk and the padding zeroed (the caller
+// picks it: F32_DK_PADS and BF16_DK_PADS in kernels/cross_attention.py;
+// fp32 takes 8, 16, 32, 64, 128, 192 or 256, bf16 the same but 8).
+// dk <= 256. TMA reads the tokens and weights: D % 8 == 0 in bf16, D % 4 ==
+// 0 in fp32 (rows of 16-byte multiples), every token and weight pointer
+// 16-byte aligned.
 extern "C" int icaf_dual_cross_attention(
     const void* vis, const void* ir, const void* weights, const void* biases,
     void* qkv, void* out_vis, void* out_ir, int B, int N, int D, int H,
@@ -737,8 +992,7 @@ extern "C" int icaf_dual_cross_attention(
   auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return run_bf16(vis, ir, w, bs, qkv, out_vis, out_ir, B, N, D, H, dkp, st);
-  if (dkp != D / H) return cudaErrorInvalidValue;
-  return run_f32(vis, ir, w, bs, qkv, out_vis, out_ir, B, N, D, H, st);
+  return run_tf32(vis, ir, w, bs, qkv, out_vis, out_ir, B, N, D, H, dkp, st);
 }
 
 extern "C" const char* icaf_error_string(int err) {

@@ -161,6 +161,53 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- tf32 and the 3xTF32 split ----------------------------------------------
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero), as
+// the 32-bit pattern the tf32 products take.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to about 2^-22 relative: big = tf32(x), small =
+// tf32(x - big); x - big is exact in fp32. a b is then taken as
+// big_a big_b + big_a small_b + small_a big_b (the 3xTF32 product), which
+// leaves out small_a small_b (2^-22 relative) and the rounding of the two
+// small halves.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b, m16n8k8, tf32 in, fp32 accumulation. a: (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4) of the 16 x 8 tile; b: (t, g), (t + 4, g) of
+// the 8 x 8 tile; d: rows g and g + 8, columns 2t and 2t + 1 (g = lane / 4,
+// t = lane % 4).
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += the 3xTF32 product of a = a_big + a_small and b = b_big + b_small,
+// the small products first (CUTLASS's fast-fp32 order).
+__device__ __forceinline__ void mma_3xtf32_1688(float (&d)[4],
+                                                const uint32_t (&ab)[4],
+                                                const uint32_t (&as)[4],
+                                                uint32_t bb0, uint32_t bb1,
+                                                uint32_t bs0, uint32_t bs1) {
+  mma_tf32_1688(d, as, bb0, bb1);
+  mma_tf32_1688(d, ab, bs0, bs1);
+  mma_tf32_1688(d, ab, bb0, bb1);
+}
+
 // 16 bytes global -> shared, zero-filled when !valid (src is then not read).
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool valid) {
@@ -286,6 +333,61 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 128, fp32) (+)= a (64 x 8 tf32, from registers: the m16n8k8 A
+// fragment of each warp's 16 rows) * b (8 x 128 tf32, K-major in shared
+// memory: rows of 32 fp32 values under the 128-byte swizzle, 32 bytes a
+// k8 step, so desc_sw128 describes it as it does bf16). The tf32 forms
+// take no transpose immediates: B is K-major.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// d (64 x 32, fp32) (+)= a (64 x 8 tf32, from registers: the m16n8k8 A
+// fragment of each warp's 16 rows) * b (8 x 32 tf32, K-major in shared
+// memory).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 // ---- small helpers ---------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -336,6 +438,15 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
                                    const cuuint64_t* strides,
                                    const cuuint32_t* box) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box);
+}
+
+// The same for fp32 (box dim 0 is 32 elements).
+inline cudaError_t encode_f32_map(CUtensorMap* map, const void* base,
+                                  int rank, const cuuint64_t* dims,
+                                  const cuuint64_t* strides,
+                                  const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
                     strides, box);
 }
 

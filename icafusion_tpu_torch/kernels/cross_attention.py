@@ -10,10 +10,12 @@ projections q/k/v of both modalities and both attention directions
 
 and returns the concatenated heads (B, N, D) of each, before the output
 projections. ``dual_cross_attention`` launches the CUDA kernel of
-``csrc/dual_cross_attention.cu`` on CUDA tensors (in bf16: the six
-projections as one wgmma GEMM fed by TMA, then a flash-attention core on
-mma.sync tensor cores; in fp32: CUDA cores, no TF32) and runs
-``dual_cross_attention_reference``, the plain PyTorch version, on CPU
+``csrc/dual_cross_attention.cu`` on CUDA tensors (the six projections as
+one wgmma GEMM fed by TMA, then a flash-attention core on mma.sync tensor
+cores; in fp32 both on tf32 tensor cores with the 3xTF32 split, each
+operand big + small, three products, fp32 accuracy, bound by 165 TFLOP/s;
+192 KB of shared memory in the GEMM and up to 205 KB in the core) and
+runs ``dual_cross_attention_reference``, the plain PyTorch version, on CPU
 tensors only.
 
 Where grad is enabled and a tensor argument requires it, the CUDA call goes
@@ -40,10 +42,12 @@ from icafusion_tpu_torch.kernels._vjp import plain_vjp
 
 NAMES = ("q_vis", "k_vis", "v_vis", "q_ir", "k_ir", "v_ir")
 MAX_DK = 256          # the widest head the kernel is built for
-# the head widths the bf16 flash core is built for: q/k/v rows are padded
-# to the next one, the padding zero; the kernel takes the width chosen here
-# and refuses any other
+# the head widths each flash core is built for (the tf32 core's k8 steps
+# take 8, the bf16 core's k16 steps 16): q/k/v rows are padded to the next
+# one, the padding zero; the kernel takes the width chosen here and refuses
+# any other
 BF16_DK_PADS = (16, 32, 64, 128, 192, 256)
+F32_DK_PADS = (8,) + BF16_DK_PADS
 
 
 def dual_cross_attention_reference(vis, ir, weights: Sequence[torch.Tensor],
@@ -81,23 +85,23 @@ def dual_cross_attention_reference(vis, ir, weights: Sequence[torch.Tensor],
 def check_args(D: int, num_heads: int, dtype) -> int:
     """Raise unless the kernel takes tokens (B, N, D) of ``dtype`` with
     ``num_heads`` heads, for any B and N: float32 or bfloat16, D % h == 0
-    and dk = D / h at most MAX_DK, and D % 8 == 0 in bfloat16 (TMA reads
-    rows of D values). Depends on the shape and dtype alone, not the
-    device. Returns the width of a row of the q/k/v scratch, which the
-    kernel is given: dk in float32, dk padded to BF16_DK_PADS in
-    bfloat16."""
+    and dk = D / h at most MAX_DK, and rows of D values a multiple of 16
+    bytes (TMA reads them): D % 4 == 0 in float32, D % 8 == 0 in bfloat16.
+    Depends on the shape and dtype alone, not the device. Returns the
+    width of a row of the q/k/v scratch, which the kernel is given: dk
+    padded to F32_DK_PADS in float32, to BF16_DK_PADS in bfloat16."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dual_cross_attention: dtype {dtype} not supported")
     if num_heads < 1 or D % num_heads or D // num_heads > MAX_DK:
         raise ValueError(f"dual_cross_attention: D={D}, h={num_heads}: "
                          f"needs D % h == 0 and D / h <= {MAX_DK}")
     dk = D // num_heads
-    if dtype == torch.float32:
-        return dk
-    if D % 8:
-        raise ValueError(f"dual_cross_attention: bfloat16 needs D % 8 == 0, "
-                         f"got D={D}")
-    return next(p for p in BF16_DK_PADS if p >= dk)
+    f32 = dtype == torch.float32
+    if D % (4 if f32 else 8):
+        raise ValueError(f"dual_cross_attention: {str(dtype)[6:]} needs "
+                         f"D % {4 if f32 else 8} == 0, got D={D}")
+    return next(p for p in (F32_DK_PADS if f32 else BF16_DK_PADS)
+                if p >= dk)
 
 
 def dual_cross_attention(vis, ir, weights: Sequence[torch.Tensor],
@@ -143,11 +147,10 @@ def launch(vis, ir, weights: Sequence[torch.Tensor],
                              f"{w.dtype}, want ({D}, {D}) {dt}")
         if bias.shape != (D,) or bias.dtype != torch.float32:
             raise ValueError("dual_cross_attention: biases are (D,) float32")
-    if dt == torch.bfloat16:
-        # TMA reads rows of D values from 16-byte aligned bases
-        if any(t.data_ptr() % 16 for t in (vis, ir, *weights)):
-            raise ValueError("dual_cross_attention: bfloat16 needs 16-byte "
-                             "aligned tokens and weights")
+    # TMA reads rows of D values from 16-byte aligned bases
+    if any(t.data_ptr() % 16 for t in (vis, ir, *weights)):
+        raise ValueError("dual_cross_attention: needs 16-byte aligned "
+                         "tokens and weights")
     # q/k/v rows padded to the flash kernel's width, the padding zero
     alloc = torch.empty if dkp == D // num_heads else torch.zeros
     qkv = alloc((6, B, num_heads, N, dkp), device=vis.device, dtype=dt)
@@ -164,10 +167,14 @@ def launch(vis, ir, weights: Sequence[torch.Tensor],
             _build.stream_handle(vis.device))
     _build.check(err, "dual_cross_attention")
     dual_cross_attention.launches += 1
+    if dt == torch.float32:
+        dual_cross_attention.tf32_launches += 1
     return out_vis, out_ir
 
 
 dual_cross_attention.launches = 0
+# of them, the fp32 launches (the 3xTF32 kernels)
+dual_cross_attention.tf32_launches = 0
 
 
 class DualCrossAttention(torch.autograd.Function):

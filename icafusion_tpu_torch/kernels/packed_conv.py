@@ -4,10 +4,15 @@ Replaces the Pallas TPU kernel ``icafusion_tpu/kernels/packed_conv.py:
 packed_conv3x3_silu`` (body ``_kernel``, weights from ``pack_weights``),
 which computes ``SiLU(conv3x3_same(x, w) * scale + bias)`` for 64 -> 64
 channels. The TPU kernel packs pixel pairs into its 128 lanes; the CUDA
-kernel of ``csrc/conv3x3_bn_silu.cu`` is an implicit GEMM instead: in bf16
-channels_last (the serving path) a persistent kernel fed by TMA halo loads
-that multiplies with wgmma; in bf16 NCHW WMMA tensor-core fragments; in
-fp32 CUDA cores.
+kernel of ``csrc/conv3x3_bn_silu.cu`` is an implicit GEMM instead. In
+channels_last a persistent kernel fed by TMA halo loads multiplies with
+wgmma: in bf16 (the serving path) one block holds all 64 output channels'
+weights; in fp32 the products run on tf32 tensor cores with the 3xTF32
+split (each operand big + small, three products, fp32 accuracy, bound by
+165 TFLOP/s), and the split weights of all 64 channels (295 KB) outgrow a
+block, so a block owns 32 of them (214 KB of shared memory). NCHW, which
+no model passes on the card, keeps the first design: WMMA fragments in
+bf16, CUDA cores in fp32.
 
 ``conv3x3_bn_silu`` launches that kernel on CUDA tensors and runs
 ``conv3x3_bn_silu_reference``, the plain PyTorch version, on CPU tensors
@@ -89,11 +94,10 @@ def launch(x, w, scale, bias):
         raise ValueError("conv3x3_bn_silu: x and w must be 16-byte aligned")
     B, _, H, W = x.shape
     out = torch.empty_like(x)   # x's layout (preserve_format)
-    bf16_nhwc = nhwc and x.dtype == torch.bfloat16
-    # the bf16 channels_last kernel rearranges w itself; the others take a
-    # pre-pass into this scratch
-    packed = None if bf16_nhwc else torch.empty(w.numel(), dtype=w.dtype,
-                                                device=x.device)
+    # the channels_last kernels rearrange w themselves; the NCHW ones take
+    # a pre-pass into this scratch
+    packed = None if nhwc else torch.empty(w.numel(), dtype=w.dtype,
+                                           device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().icaf_conv3x3_bn_silu(
             x.data_ptr(), w.data_ptr(),
@@ -103,10 +107,14 @@ def launch(x, w, scale, bias):
             int(nhwc), _build.stream_handle(x.device))
     _build.check(err, "conv3x3_bn_silu")
     conv3x3_bn_silu.launches += 1
+    if nhwc and x.dtype == torch.float32:
+        conv3x3_bn_silu.tf32_launches += 1
     return out
 
 
 conv3x3_bn_silu.launches = 0
+# of them, the fp32 channels_last launches (the 3xTF32 kernel)
+conv3x3_bn_silu.tf32_launches = 0
 
 
 class Conv3x3BnSilu(torch.autograd.Function):

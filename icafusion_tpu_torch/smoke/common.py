@@ -15,8 +15,12 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# The fp32 kernels multiply on tf32 tensor cores with the 3xTF32 split
+# (three tf32 products a product, fp32 accuracy): their operations bound is
+# at a third of the dense tf32 rate, beside FFMA's 67 TFLOP/s.
+TF32X3 = "3xtf32"
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,   # dense
-              torch.int8: 1979e12}
+              torch.int8: 1979e12, TF32X3: 495e12 / 3}
 ATTN_SHAPES = ((400, 256), (256, 512), (100, 1024))   # (N, D) at P3/P4/P5
 # the fusion levels of every other shipped config at 640: the n, s, m and x
 # scales and the VGG16 and ResNet50 towers (dk 8 to 256), timed apart
@@ -168,19 +172,20 @@ def attention_library(vis, ir, ws, bs):
     return sdpa(q_ir, k_vis, v_vis), sdpa(q_vis, k_ir, v_ir)
 
 
-def bound(flops: float, nbytes: float, dtype):
-    """(least ms, what bounds it): operations at the dense peak of dtype, or
-    bytes (each input read once, each output written once) at HBM rate."""
-    t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+def bound(flops: float, nbytes: float, dtype, peak=None):
+    """(least ms, what bounds it): operations at the dense peak of dtype
+    (or of `peak`, a PEAK_FLOPS key), or bytes (each input read once, each
+    output written once) at HBM rate."""
+    t_ops = 1e3 * flops / PEAK_FLOPS[dtype if peak is None else peak]
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bound(B: int, N: int, D: int, dtype):
+def attention_bound(B: int, N: int, D: int, dtype, peak=None):
     s = torch.finfo(dtype).bits // 8
     flops = 12 * B * N * D * D + 8 * B * N * N * D
     nbytes = 4 * B * N * D * s + 6 * D * D * s + 6 * D * 4
-    return bound(flops, nbytes, dtype)
+    return bound(flops, nbytes, dtype, peak)
 
 
 def conv_case(shape, dtype, layout, gen: torch.Generator):
@@ -201,11 +206,21 @@ def conv_library(x, w_folded, b_folded):
     return F.silu(F.conv2d(x, w_folded, b_folded, padding=1))
 
 
-def conv_bound(shape, dtype):
+def conv_bound(shape, dtype, peak=None):
     B, C, H, W = shape
     s = torch.finfo(dtype).bits // 8
     return bound(2 * B * H * W * C * C * 9,
-                 2 * B * C * H * W * s + C * C * 9 * s + 2 * C * 4, dtype)
+                 2 * B * C * H * W * s + C * C * 9 * s + 2 * C * 4, dtype,
+                 peak)
+
+
+def bounds_text(fn, *args, dtype) -> str:
+    """fn's bound as printed beside a time: in fp32 at 3xTF32 and at FFMA
+    (a tensor-core kernel may run below the FFMA bound)."""
+    if dtype != torch.float32:
+        return "bound {:.5f} ms ({})".format(*fn(*args, dtype))
+    return ("bound {:.5f} ms ({}) at 3xTF32, {:.5f} ms ({}) at FFMA".format(
+        *fn(*args, dtype, TF32X3), *fn(*args, dtype)))
 
 
 def matched(a: np.ndarray, r: np.ndarray) -> float:
@@ -284,12 +299,14 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
         return None
     groups = {"dual_cross_attention": ("projections_wgmma_kernel",
                                        "flash_attention_kernel",
-                                       "projections_f32_kernel",
-                                       "attention_f32_kernel"),
+                                       "projections_tf32_kernel",
+                                       "attention_tf32_kernel"),
               "greedy_nms": ("nms_mask_kernel", "nms_scan_kernel"),
               "conv3x3_bn_silu": ("conv3x3_bf16_nhwc_kernel",
+                                  "conv3x3_tf32_nhwc_kernel",
                                   "conv3x3_bf16_nchw_kernel",
-                                  "conv3x3_f32_kernel", "pack_weights_kernel"),
+                                  "conv3x3_f32_nchw_kernel",
+                                  "pack_weights_kernel"),
               "conv_int8_bn_act": ("conv_int8_kernel",
                                    "conv_int8_tma_kernel")}
     busy_ms = busy / n / 1e3

@@ -11,6 +11,28 @@ gated run does not make. Each subcommand needs a CUDA device.
         builds its own kernels there, so that one call can compare two
         checkouts: parent, change, change, parent.
 
+    python3 port_probes.py fp32 [--root DIR]
+
+        Device time of the fp32 kernels on their channels_last and
+        flagship paths, each call first held against its plain version at
+        chip_smoke.py's fp32 gates: the dual cross-attention summed over
+        the flagship's three shapes, split by launch (the projections, the
+        core), and the 64-channel conv at (B, 64, 160, 160), at B = 1, 4
+        and 32, by torch.profiler over 50 calls. The package comes from
+        DIR, as for attention, so that one call can time the first
+        designs of a parent checkout beside this one's.
+
+    python3 port_probes.py fp32-variants
+
+        Where the fp32 kernels' time goes: copies of
+        csrc/dual_cross_attention.cu and csrc/conv3x3_bn_silu.cu (and
+        hopper.cuh) with one part cut out (FP32_VARIANTS: the two small
+        products of every 3xTF32 product, the projections' split of W),
+        each built beside build/ and launched through the wrappers at the
+        flagship attention and the (B, 64, 160, 160) conv, B = 4 and 32,
+        timed by torch.profiler. A cut copy gives wrong sums and is only
+        timed.
+
     python3 port_probes.py fp64
 
         How far fp32 decoded predictions lie from float64: the seeded
@@ -166,6 +188,146 @@ def attention(root: Path) -> dict:
                            if v > 0}
         print(f"   (N, D) = ({N}, {D}), B 4, bf16: {out[f'{N}x{D}']} ms "
               f"({cs.timing_source()})", flush=True)
+    return out
+
+
+def fp32_kernels(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    from icafusion_tpu_torch.smoke import common as cs
+    from icafusion_tpu_torch.kernels.cross_attention import (
+        dual_cross_attention, dual_cross_attention_reference)
+    from icafusion_tpu_torch.kernels.packed_conv import (
+        conv3x3_bn_silu, conv3x3_bn_silu_reference)
+    assert Path(dual_cross_attention.__code__.co_filename).is_relative_to(
+        root), dual_cross_attention.__code__.co_filename
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for B in (1, 4, 32):
+        split = {"projections": 0.0, "core": 0.0}
+        for N, D in FLAGSHIP:
+            args = cs.attention_case(B, N, D, torch.float32, gen)
+            for g, w in zip(dual_cross_attention(*args, num_heads=8),
+                            dual_cross_attention_reference(*args,
+                                                           num_heads=8)):
+                torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+            by = cs.device_times(
+                lambda: dual_cross_attention(*args, num_heads=8), iters=50,
+                warmup=5)
+            for k, v in by.items():
+                split["projections" if "projections" in k else "core"] += v
+            del args
+        x, w, sc, bi = cs.conv_case((B, 64, 160, 160), torch.float32,
+                                    torch.channels_last, gen)
+        torch.testing.assert_close(conv3x3_bn_silu(x, w, sc, bi),
+                                   conv3x3_bn_silu_reference(x, w, sc, bi),
+                                   rtol=1e-4, atol=1e-4)
+        conv = cs.device_times(lambda: conv3x3_bn_silu(x, w, sc, bi),
+                               iters=50, warmup=5)
+        out[f"B={B}"] = {"attention": {k: round(v, 5)
+                                       for k, v in split.items()},
+                         "conv": {k[:60]: round(v, 5)
+                                  for k, v in conv.items()}}
+        print(f"   fp32 B={B}: {out[f'B={B}']} ({cs.timing_source()})",
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+# fp32-variants: name -> replacements (old, new) of every occurrence in
+# the fp32 kernels' sources
+FP32_VARIANTS = {
+    "shipped": (),
+    "big products only (1xTF32)": (
+        ("  mma_tf32_1688(d, as, bb0, bb1);\n  mma_tf32_1688(d, ab, bs0, bs1);\n",
+         ""),
+        ("      wgmma_m64n128k8_tf32_rs(acc, as[kk], desc_sw128(wb + kk * 32), "
+         "kk != 0);\n      wgmma_m64n128k8_tf32_rs(acc, ab[kk], "
+         "desc_sw128(wsm + kk * 32), 1);\n      wgmma_m64n128k8_tf32_rs(acc, "
+         "ab[kk], desc_sw128(wb + kk * 32), 1);",
+         "      wgmma_m64n128k8_tf32_rs(acc, ab[kk], desc_sw128(wb + kk * 32), "
+         "kk != 0);"),
+        ("        wgmma_m64n32k8_tf32_rs(acc[set][0], as[u & 1][st], "
+         "desc_sw128(wb), sd);\n        wgmma_m64n32k8_tf32_rs(acc[set][1], "
+         "ab[u & 1][st],\n                               desc_sw128(wb + "
+         "kWBytes), sd);\n", "")),
+    "projections: W not split": (
+        ("    for (int q = 0; q < kTile / 16 / kThreads; ++q) {",
+         "    for (int q = 0; q < 0; ++q) {"),),
+}
+
+
+def fp32_variants() -> dict:
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.kernels.cross_attention import (
+        dual_cross_attention)
+    from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
+    from icafusion_tpu_torch.smoke import common as cs
+    names = ("dual_cross_attention.cu", "conv3x3_bn_silu.cu", "hopper.cuh")
+    texts = {n: (_build.CSRC / n).read_text() for n in names}
+    work = _build.BUILD_DIR / "fp32_variants"
+
+    def build(i_name):
+        i, name = i_name
+        d = work / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        out = dict(texts)
+        for a, b in FP32_VARIANTS[name]:
+            hits = [n for n in names if a in out[n]]
+            assert hits, (name, a)
+            for n in hits:
+                out[n] = out[n].replace(a, b)
+        for n, text in out.items():
+            (d / n).write_text(text)
+        so = d / "lib.so"
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                            "-o", str(so), str(d / names[0]),
+                            str(d / names[1])], capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr
+        lib = ctypes.CDLL(str(so))
+        for entry in ("icaf_dual_cross_attention", "icaf_conv3x3_bn_silu"):
+            fn = getattr(lib, entry)
+            fn.argtypes = _build.SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+        lib.icaf_error_string.argtypes = (ctypes.c_int,)
+        lib.icaf_error_string.restype = ctypes.c_char_p
+        return name, lib
+
+    with ThreadPoolExecutor(len(FP32_VARIANTS)) as pool:
+        libs = list(pool.map(build, enumerate(FP32_VARIANTS)))
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    real, out = _build.library, {}
+    try:
+        for B in (4, 32):
+            att = [cs.attention_case(B, N, D, torch.float32, gen)
+                   for N, D in FLAGSHIP]
+            conv = cs.conv_case((B, 64, 160, 160), torch.float32,
+                                torch.channels_last, gen)
+            for name, lib in libs:
+                _build.library = lambda lib=lib: lib
+                split = {"projections": 0.0, "core": 0.0}
+                for args in att:
+                    by = cs.device_times(
+                        lambda: dual_cross_attention(*args, num_heads=8),
+                        iters=50, warmup=5)
+                    for k, v in by.items():
+                        split["projections" if "projections" in k
+                              else "core"] += v
+                row = {**split, "conv": cs.device_ms(
+                    lambda: conv3x3_bn_silu(*conv), iters=50, warmup=5)}
+                out[f"B={B} {name}"] = {k: round(v, 5)
+                                        for k, v in row.items()}
+                print(f"   B={B} {name}: {out[f'B={B} {name}']} ms",
+                      flush=True)
+            del att, conv
+            torch.cuda.empty_cache()
+    finally:
+        _build.library = real
     return out
 
 
@@ -868,6 +1030,9 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     a = sub.add_parser("attention")
     a.add_argument("--root", type=Path, default=HERE)
+    f = sub.add_parser("fp32")
+    f.add_argument("--root", type=Path, default=HERE)
+    sub.add_parser("fp32-variants")
     sub.add_parser("fp64")
     sub.add_parser("int8-splits")
     sub.add_parser("int8-phases")
@@ -892,6 +1057,11 @@ def main(argv=None) -> int:
     if args.cmd == "attention":
         res = {"root": str(args.root.resolve()),
                "attention": attention(args.root.resolve())}
+    elif args.cmd == "fp32":
+        res = {"root": str(args.root.resolve()),
+               "fp32": fp32_kernels(args.root.resolve())}
+    elif args.cmd == "fp32-variants":
+        res = {"fp32_variants": fp32_variants()}
     elif args.cmd == "int8-splits":
         res = {"int8_splits": int8_splits()}
     elif args.cmd == "int8-phases":

@@ -87,10 +87,12 @@ def test_shipped_config_matches_jax(name):
                                    (192, 32), (320, 64), (640, 128),
                                    (384, 64), (768, 128), (64, 16)])
 def test_attention_check_accepts_the_shipped_widths(D, dkp):
-    """Every (D, h = 8) of the shipped configs: fp32 keeps dk, bf16 pads it
-    to the flash core's width. dk 160 (x-scale P5) and 256 (ResNet50 P5)
-    were refused before the kernel took heads wider than 128."""
-    assert check_args(D, 8, torch.float32) == D // 8
+    """Every (D, h = 8) of the shipped configs: each dtype pads dk to its
+    flash core's width, fp32 as bf16 but for dk 8, one k8 step of the
+    tf32 core (bf16's k16 steps take 16). dk 160 (x-scale P5) and 256
+    (ResNet50 P5) were refused before the kernel took heads wider than
+    128."""
+    assert check_args(D, 8, torch.float32) == (8 if D == 64 else dkp)
     assert check_args(D, 8, torch.bfloat16) == dkp
 
 
@@ -101,9 +103,11 @@ def test_attention_check_refuses_what_the_kernel_does_not_take():
         check_args(100, 8, torch.float32)
     with pytest.raises(ValueError, match="D % 8"):
         check_args(36, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="D % 4"):
+        check_args(42, 6, torch.float32)          # rows of 168 bytes
     with pytest.raises(TypeError):
         check_args(64, 8, torch.float16)
-    assert check_args(36, 4, torch.float32) == 9
+    assert check_args(36, 4, torch.float32) == 16
 
 
 @pytest.mark.parametrize("D", [1280, 2048])

@@ -302,6 +302,47 @@ def test_conv_kernel_matches_reference(dev, shape, layout, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("N", [1, 63, 65])
+@pytest.mark.parametrize("D", [48, 64, 2048])
+def test_attention_tf32_kernel_at_its_edges(dev, N, D):
+    """The fp32 kernel's 3xTF32 design at its edges: dk 6 (padded to 8)
+    and dk 8, one k8 step each; dk 256, value columns split across two
+    blocks and 32-key tiles; one key, and one short of and one past a
+    64-query tile (and the 32-key tiles). One launch a call; the fp32
+    gate."""
+    args = _attention_args(2, N, D, torch.float32, dev, seed=7 * N + D)
+    before = (dual_cross_attention.launches,
+              dual_cross_attention.tf32_launches)
+    got = dual_cross_attention(*args)
+    assert (dual_cross_attention.launches,
+            dual_cross_attention.tf32_launches) == tuple(
+                n + 1 for n in before)
+    want = dual_cross_attention_reference(*args)
+    for g, w in zip(got, want):
+        assert g.shape == (2, N, D)
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 3, 5),     # under one 8 x 16 tile
+                                   (1, 64, 8, 1),
+                                   (2, 64, 17, 33),   # ragged both ways
+                                   (3, 64, 9, 47)])
+def test_conv_tf32_kernel_at_its_edges(dev, shape):
+    """The fp32 channels_last kernel's 3xTF32 design: maps smaller than
+    one 8 x 16-pixel tile and maps whose tiles are ragged in both
+    directions; both 32-channel blocks of a tile. One launch a call, on the
+    3xTF32 kernel; the fp32 gate."""
+    args = _conv_args(shape, torch.float32, torch.channels_last, dev,
+                      seed=shape[3])
+    before = conv3x3_bn_silu.launches, conv3x3_bn_silu.tf32_launches
+    got = conv3x3_bn_silu(*args)
+    assert (conv3x3_bn_silu.launches,
+            conv3x3_bn_silu.tf32_launches) == tuple(n + 1 for n in before)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, conv3x3_bn_silu_reference(*args),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_conv_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x, w, s, b = _conv_args((1, 64, 8, 8), torch.float32,
                             torch.contiguous_format, dev)
