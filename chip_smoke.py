@@ -30,8 +30,12 @@ exit code is non-zero and the final line is never printed:
    batches 1 and 32 of it, on a 512 x 640 canvas (16, 64, 128, 160), six
    ragged ones and the validation path's rect (2, 64, 68, 84) and TTA
    (2, 64, 56, 56) maps, float32 and bfloat16, channels_last (the serving
-   path's layout) and NCHW, timed like phase 2 (float32 channels_last
-   held to the 3xTF32 kernel);
+   path's layout) and NCHW (a .pt2 program's, Grad-CAM's and an
+   ensemble's on ordinary tensors), timed like phase 2, each row held by
+   profiler name to its route's kernel (kernels/packed_conv.py: route:
+   nhwc, nchw_tma or nchw_ld), each NCHW row printed beside the first
+   design's time (smoke/common.FIRST_DESIGN_NCHW_MS) and cuDNN's NCHW
+   call;
 4. the slice: (a) a tiny model served on the card against the same engine
    on the CPU; (b) ServingEngine on yolov5l-Transfusion at 640, batch 4,
    bfloat16, random weights from torch.Generator().manual_seed(0), three
@@ -152,25 +156,29 @@ exit code is non-zero and the final line is never printed:
    seeded yolov5l-Transfusion (phase 4b's weights) at 640, fp32, batch 1,
    as ONNX, run by the port's numpy evaluator and held to the port's
    forward on the card with cli.export --validate's gates, 3 attention
-   and 6 fused conv launches; (b) the same with --nms baked in, held to
+   and 6 fused conv launches, all 6 on the NCHW routes; (b) the same with --nms baked in, held to
    non_max_suppression on the card (1 NMS launch) at a threshold where no
    cap binds; (c) trained s640 calibrated on 16 extval pairs, exported as
    int8 QDQ ONNX: its scores within 0.05 of the card's int8 forward and
    of the fp32 graph, the int8 launches counted; (d) cli.export --include
    pt2 of the flagship on the card: 3 icafusion::dual_cross_attention and
    6 icafusion::conv3x3_bn_silu nodes, torch.export.load and a run within
-   1e-5 of the eager forward, with the kernels launched, then the same in
-   bf16 with its detections matched (printed); (e) Grad-CAM on trained
-   n320 at Detect's inputs and at layer 4 (through the attention's and
-   the fused conv's autograd paths), card against CPU within 1e-3; (f)
+   1e-5 of the eager forward, with the kernels launched (6 fused convs on
+   the NCHW routes a forward) and the program's device ms a forward
+   (queued_ms), then the same in bf16 with its detections matched
+   (printed); (e) Grad-CAM on trained n320 at Detect's inputs and at layer
+   4 (through the attention's and the fused conv's autograd paths), on a
+   channels_last pair and on an NCHW one, card against CPU within 1e-3,
+   the NCHW launches of each; (f)
    the kitchen-sink graph quantized (its depthwise Ghost convs on the
    int8 conv's grouped path) and a depthwise 64 -> 64 3x3 Conv: every
    grouped int8 conv's int32 accumulators equal the plain version's at
    B = 1, 4 and 32; then the depthwise 64 -> 64 3x3 and the four grouped
    classes of the CPU tests at (B, C, 160, 160), B = 1, 4 and 32:
    accumulators exact, each timed beside its bound, the plain version and
-   cuDNN's bf16 grouped conv; (g) an ensemble of two seeded yolov5n members on the card, its
-   candidates each member's own;
+   cuDNN's bf16 grouped conv; (g) an ensemble of two seeded yolov5n
+   members on the card, its candidates each member's own, its fused convs
+   all on the NCHW routes;
 15. stream merging, evolution and profiling (smoke/merge.py): (a) the
    flagship (phase 4b's weights) served at 640, batch 4, merged at 3
    pairs against unmerged, in fp32 with TF32 off (decoded predictions
@@ -196,7 +204,10 @@ of phases); this script keeps the order, the names and the summary lines.
 Before the last line it prints one JSON object with each kernel's launches
 on the main path (phases 4b, 8, 10a, 12, 13a-13c, 14 and 15's merged
 runs; the int8 conv's in 11b, 12d, 14c/14f and 15a/15b, its stem path's
-and its grouped path's in the same runs), error,
+and its grouped path's in the same runs; the fused conv's NCHW routes' in
+14a/14b, 14d, 14e and 14g, fp32 and bf16 together and counted in the
+fused conv's own entry as well, timed at (1, 64, 160, 160) fp32, a .pt2
+forward's map), error,
 device times (kernel, plain version and library yardstick, from
 torch.profiler) and bound; the
 last line is {"ok": true, "device": {...}}. Should the profiler record no
@@ -247,6 +258,7 @@ def main(argv=None) -> int:
     from icafusion_tpu_torch.kernels.nms import greedy_nms, greedy_nms_reference
     from icafusion_tpu_torch.kernels.packed_conv import (
         conv3x3_bn_silu, conv3x3_bn_silu_reference)
+    from icafusion_tpu_torch.kernels.packed_conv import route as conv_route
     from icafusion_tpu_torch.models.assembler import build_model, init_weights
     from icafusion_tpu_torch.models.zoo import (icafusion_config,
                                                 tiny_icafusion_config)
@@ -255,11 +267,12 @@ def main(argv=None) -> int:
     from icafusion_tpu_torch.utils.convert import load_jax_variables
     from icafusion_tpu_torch.smoke.common import (
         ATTN_RAGGED, ATTN_SHAPES, ATTN_SHIPPED, BATCH, BUCKETS,
-        CONVS_PER_FORWARD, CONV_SHAPES, HEADS, INT8_PATH_KEYS, MAP50_GATE,
-        PROFILER, STEADY_REQUESTS, TF32X3, attention_bound, attention_case,
-        attention_library, both_ms, bound, bounds_text, check_pool_grads,
-        conv_bound, conv_case, conv_library, cuda_ms, device_times, done,
-        matched, nms_case, phase, profile_requests)
+        CONVS_PER_FORWARD, CONV_SHAPES, FIRST_DESIGN_NCHW_MS, HEADS,
+        INT8_PATH_KEYS, MAP50_GATE, NCHW_KEY, PROFILER, STEADY_REQUESTS,
+        TF32X3, attention_bound, attention_case, attention_library, both_ms,
+        bound, bounds_text, check_pool_grads, conv_bound, conv_case,
+        conv_library, cuda_ms, device_times, done, matched, nms_case, phase,
+        profile_requests)
     from icafusion_tpu_torch.smoke.train import (
         fit_slice, train_card_vs_cpu, train_slice)
     from icafusion_tpu_torch.smoke.val import val_slice
@@ -457,6 +470,7 @@ def main(argv=None) -> int:
     for dtype, shape, (lname, layout) in itertools.product(
             (torch.float32, torch.bfloat16), CONV_SHAPES, layouts.items()):
         x, w, sc, bi = conv_case(shape, dtype, layout, gen)
+        route = conv_route(x)
         out = conv3x3_bn_silu(x, w, sc, bi)
         ref = conv3x3_bn_silu_reference(x, w, sc, bi)
         torch.cuda.synchronize()
@@ -470,29 +484,42 @@ def main(argv=None) -> int:
         fn = lambda: conv3x3_bn_silu(x, w, sc, bi)
         by_kernel = device_times(fn)
         ms, ms_ev = sum(by_kernel.values()), cuda_ms(fn)
-        if (dtype == torch.float32 and lname == "NHWC"
-                and not PROFILER["dead"]):
-            assert any("conv3x3_tf32_nhwc_kernel" in n
-                       for n in by_kernel), by_kernel
+        if not PROFILER["dead"]:   # the route's kernel, by its name
+            kname = (f"conv3x3_{'bf16' if dtype == torch.bfloat16 else 'tf32'}"
+                     f"_{route}_kernel")
+            assert any(kname in n for n in by_kernel), (kname, by_kernel)
         plain, plain_ev = both_ms(
             lambda: conv3x3_bn_silu_reference(x, w, sc, bi))
         lib, lib_ev = both_ms(lambda: conv_library(x, w_f, b_f))
         bnd, by = conv_bound(shape, dtype)
-        print(f"   {str(dtype)[6:]:8s} {lname} {str(shape):18s}: "
+        first = (FIRST_DESIGN_NCHW_MS.get((dtype, shape))
+                 if lname == "NCHW" else None)
+        print(f"   {str(dtype)[6:]:8s} {lname} {str(shape):18s} {route:8s}: "
               f"max_abs_err {err:.3g} (rtol {rtol:g}, atol {atol:g})  device "
               f"ms: kernel {ms:.4f} plain {plain:.4f} library {lib:.4f}; "
               f"events ms: kernel {ms_ev:.4f} plain {plain_ev:.4f} library "
-              f"{lib_ev:.4f}; {bounds_text(conv_bound, shape, dtype=dtype)}")
+              f"{lib_ev:.4f}; {bounds_text(conv_bound, shape, dtype=dtype)}"
+              + ("" if first is None else
+                 f"; NCHW: kernel {ms:.4f} ms, first design "
+                 f"{first:.4f}, cuDNN NCHW {lib:.4f}"))
         if (dtype == torch.bfloat16 and shape == CONV_SHAPES[0]
                 and lname == "NHWC"):            # the serving path's
             report["conv3x3_bn_silu"] = {
                 "ms": ms, "plain_ms": plain, "bound_ms": bnd,
                 "library_ms": lib, "max_abs_err": err, "bound_by": {by}}
+        if (dtype == torch.float32 and shape == CONV_SHAPES[1]
+                and lname == "NCHW"):            # a .pt2 forward's, fp32 b1
+            tf32_bnd, tf32_by = conv_bound(shape, dtype, TF32X3)
+            report[NCHW_KEY] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": tf32_bnd,
+                "library_ms": lib, "max_abs_err": err,
+                "bound_by": {tf32_by}}
     done(t0)
 
     # the fp32 kernels' launches on the entry points' paths (phases 4-15)
     dual_cross_attention.tf32_launches = 0
     conv3x3_bn_silu.tf32_launches = 0
+    conv3x3_bn_silu.nchw_launches = 0
 
     t0 = phase("4a tiny model: engine on the card vs on the CPU (fp32)")
     tiny = build_model(tiny_icafusion_config(),
@@ -682,6 +709,8 @@ def main(argv=None) -> int:
         report["conv_int8_bn_act (grouped)"], exp = export_slice(card,
                                                                  Path(tmp))
     launches = {k: v + exp.get(k, 0) for k, v in launches.items()}
+    launches[NCHW_KEY] = exp[NCHW_KEY]   # 14a/b, 14d, 14e and 14g
+    assert launches[NCHW_KEY] > 0, launches
 
     with tempfile.TemporaryDirectory() as tmp:
         merged = merge_slice(card, data_yaml, Path(tmp))
@@ -701,6 +730,9 @@ def main(argv=None) -> int:
             ("greedy_nms", "icafusion_tpu_torch/csrc/greedy_nms.cu",
              "icafusion_tpu/kernels/nms.py:71"),
             ("conv3x3_bn_silu", "icafusion_tpu_torch/csrc/conv3x3_bn_silu.cu",
+             "icafusion_tpu/kernels/packed_conv.py:120"),
+            # its NCHW routes (a .pt2 program's, Grad-CAM's, an ensemble's)
+            (NCHW_KEY, "icafusion_tpu_torch/csrc/conv3x3_bn_silu.cu",
              "icafusion_tpu/kernels/packed_conv.py:120"),
             # no Pallas kernel: XLA's int8 conv of Conv._int8_conv
             ("conv_int8_bn_act", "icafusion_tpu_torch/csrc/conv_int8.cu",
@@ -723,7 +755,8 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"]})
     tf32 = {"dual_cross_attention": dual_cross_attention.tf32_launches,
             "conv3x3_bn_silu": conv3x3_bn_silu.tf32_launches}
-    print(f"   fp32 launches on the 3xTF32 kernels in phases 4-15: {tf32}")
+    print(f"   fp32 launches on the 3xTF32 kernels in phases 4-15 (the "
+          f"conv's in both layouts): {tf32}")
     assert all(tf32.values()), tf32
     print(f"== total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

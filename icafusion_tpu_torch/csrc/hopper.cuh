@@ -214,6 +214,12 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
+// 4 bytes global -> shared, zero-filled when !valid (src is then not read).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -403,14 +409,15 @@ __device__ __forceinline__ uint32_t pick4(uint32_t v0, uint32_t v1,
 
 // ---- host: tensor maps -----------------------------------------------------
 
-// A tensor map of `dtype` elements with the 128-byte swizzle (box dim 0
-// spans 128 bytes) and zero fill outside the tensor. dims and box innermost
-// first; strides in bytes for dims 1 .. rank - 1.
-inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype,
-                              const void* base, int rank,
-                              const cuuint64_t* dims,
-                              const cuuint64_t* strides,
-                              const cuuint32_t* box) {
+// A tensor map of `dtype` elements with zero fill outside the tensor and
+// the 128-byte swizzle (box dim 0 spans 128 bytes), or `swizzle`
+// (CU_TENSOR_MAP_SWIZZLE_NONE: the box lies in shared memory as it is, box
+// dim 0 a multiple of 16 bytes). dims and box innermost first; strides in
+// bytes for dims 1 .. rank - 1, each a multiple of 16.
+inline cudaError_t encode_map(
+    CUtensorMap* map, CUtensorMapDataType dtype, const void* base, int rank,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -425,29 +432,28 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype,
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   CUresult r = encode(map, dtype, static_cast<cuuint32_t>(rank),
                       const_cast<void*>(base), dims, strides, box,
-                      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The same for bf16 (box dim 0 is 64 elements).
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
-                                   int rank, const cuuint64_t* dims,
-                                   const cuuint64_t* strides,
-                                   const cuuint32_t* box) {
+// The same for bf16 (box dim 0 is 64 elements under the 128-byte swizzle).
+inline cudaError_t encode_bf16_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
-                    strides, box);
+                    strides, box, swizzle);
 }
 
-// The same for fp32 (box dim 0 is 32 elements).
-inline cudaError_t encode_f32_map(CUtensorMap* map, const void* base,
-                                  int rank, const cuuint64_t* dims,
-                                  const cuuint64_t* strides,
-                                  const cuuint32_t* box) {
+// The same for fp32 (box dim 0 is 32 elements under the 128-byte swizzle).
+inline cudaError_t encode_f32_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
-                    strides, box);
+                    strides, box, swizzle);
 }
 
 // Dynamic shared memory opt-in for a kernel, once per kernel and device.

@@ -49,9 +49,9 @@ SIGNATURES = {
     # boxes, scores, mask scratch (B, K, nms.mask_words(K)) int64, keep, ok,
     # B, K, max_det, iou_thres, stream
     "icaf_greedy_nms": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
-    # x, w, packed weights scratch, scale, bias, out, B, H, W, is_bf16,
-    # nhwc, stream
-    "icaf_conv3x3_bn_silu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # x, w, scale, bias, out, B, H, W, is_bf16, nhwc, route
+    # (packed_conv.ROUTES' index), stream
+    "icaf_conv3x3_bn_silu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P),
     # x, its strides (b, c, h, w), w8, s_in, s_w, gamma, beta, mean, var,
     # eps, out, B, Cin, H, W, Cout, kh, kw, stride_h, stride_w, pad_h,

@@ -4,15 +4,18 @@ Replaces the Pallas TPU kernel ``icafusion_tpu/kernels/packed_conv.py:
 packed_conv3x3_silu`` (body ``_kernel``, weights from ``pack_weights``),
 which computes ``SiLU(conv3x3_same(x, w) * scale + bias)`` for 64 -> 64
 channels. The TPU kernel packs pixel pairs into its 128 lanes; the CUDA
-kernel of ``csrc/conv3x3_bn_silu.cu`` is an implicit GEMM instead. In
-channels_last a persistent kernel fed by TMA halo loads multiplies with
-wgmma: in bf16 (the serving path) one block holds all 64 output channels'
-weights; in fp32 the products run on tf32 tensor cores with the 3xTF32
-split (each operand big + small, three products, fp32 accuracy, bound by
-165 TFLOP/s), and the split weights of all 64 channels (295 KB) outgrow a
-block, so a block owns 32 of them (214 KB of shared memory). NCHW, which
-no model passes on the card, keeps the first design: WMMA fragments in
-bf16, CUDA cores in fp32.
+kernels of ``csrc/conv3x3_bn_silu.cu`` are implicit GEMMs instead:
+persistent, their halos in a ring of shared-memory buffers, multiplied
+with wgmma. In bf16 one block holds all 64 output channels' weights; in
+fp32 the products run on tf32 tensor cores with the 3xTF32 split (each
+operand big + small, three products, fp32 accuracy, bound by 165
+TFLOP/s), and the split weights of all 64 channels (295 KB) outgrow a
+block, so a block owns 32 of them. Each dtype's kernel takes one of three
+routes (``route``): channels_last maps by TMA; NCHW maps, which an
+ordinary (B, 3, H, W) tensor gives (a ``.pt2`` program, ``cli.export
+--validate``, Grad-CAM, ensembles, a ``hub.create`` model), by TMA over a
+channel-major box where a row is a multiple of 16 bytes, else by the
+threads' own loads.
 
 ``conv3x3_bn_silu`` launches that kernel on CUDA tensors and runs
 ``conv3x3_bn_silu_reference``, the plain PyTorch version, on CPU tensors
@@ -46,6 +49,23 @@ def conv3x3_bn_silu_reference(x, w, scale, bias):
     y = F.conv2d(x.float(), w.float(), padding=1)
     y = y * scale.float()[:, None, None] + bias.float()[:, None, None]
     return F.silu(y).to(x.dtype)
+
+
+# csrc/conv3x3_bn_silu.cu: Route (the C entry takes the index)
+ROUTES = ("nhwc", "nchw_tma", "nchw_ld")
+
+
+def route(x) -> str:
+    """The kernel route of a (B, 64, H, W) x on the card (the C entry's
+    route_of mirrors it and refuses another): "nhwc" where x is
+    channels_last (a tensor dense in both layouts, H = W = 1, is); for
+    NCHW "nchw_tma" where a row of x is a multiple of 16 bytes, as a TMA
+    tensor map's strides must be (W % 8 == 0 in bf16, W % 4 == 0 in fp32),
+    else "nchw_ld", where the kernel's threads load the halo themselves."""
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return "nhwc"
+    return ("nchw_tma" if x.shape[3] * x.element_size() % 16 == 0
+            else "nchw_ld")
 
 
 def conv3x3_bn_silu(x, w, scale, bias):
@@ -85,36 +105,33 @@ def launch(x, w, scale, bias):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("conv3x3_bn_silu: w, scale and bias must be "
                              "contiguous and on x's device")
-    # a tensor dense in both layouts (H = W = 1) takes the channels_last path
-    nhwc = x.is_contiguous(memory_format=torch.channels_last)
-    if not nhwc and not x.is_contiguous():
+    r = route(x)
+    if r != "nhwc" and not x.is_contiguous():
         raise ValueError("conv3x3_bn_silu: x must be contiguous in NCHW or "
                          "in channels_last")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3x3_bn_silu: x and w must be 16-byte aligned")
     B, _, H, W = x.shape
     out = torch.empty_like(x)   # x's layout (preserve_format)
-    # the channels_last kernels rearrange w themselves; the NCHW ones take
-    # a pre-pass into this scratch
-    packed = None if nhwc else torch.empty(w.numel(), dtype=w.dtype,
-                                           device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().icaf_conv3x3_bn_silu(
-            x.data_ptr(), w.data_ptr(),
-            None if packed is None else packed.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), B, H, W,
-            int(x.dtype == torch.bfloat16),
-            int(nhwc), _build.stream_handle(x.device))
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, H, W, int(x.dtype == torch.bfloat16),
+            int(r == "nhwc"), ROUTES.index(r), _build.stream_handle(x.device))
     _build.check(err, "conv3x3_bn_silu")
     conv3x3_bn_silu.launches += 1
-    if nhwc and x.dtype == torch.float32:
+    if x.dtype == torch.float32:
         conv3x3_bn_silu.tf32_launches += 1
+    if r != "nhwc":
+        conv3x3_bn_silu.nchw_launches += 1
     return out
 
 
 conv3x3_bn_silu.launches = 0
-# of them, the fp32 channels_last launches (the 3xTF32 kernel)
+# of them, the fp32 launches (the 3xTF32 kernels) and the NCHW launches
+# (routes nchw_tma and nchw_ld)
 conv3x3_bn_silu.tf32_launches = 0
+conv3x3_bn_silu.nchw_launches = 0
 
 
 class Conv3x3BnSilu(torch.autograd.Function):

@@ -42,6 +42,37 @@ CONV_SHAPES = ((4, 64, 160, 160),    # the serving path: first C3 of a tower
                (2, 64, 68, 84),     # rect val at 640: 544 x 672 canvas
                (2, 64, 56, 56))     # the third TTA pass at 640 (448)
 CONVS_PER_FORWARD = 6                # yolov5l: 3 bottlenecks x 2 towers
+# The NCHW conv's first designs (a weight pre-pass, then WMMA in bf16 and
+# CUDA-core FFMA in fp32), since replaced by the nchw routes: device ms by
+# torch.profiler at CONV_SHAPES in chip_smoke.py's last run of them on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside the NCHW routes in phase
+# 3b. (1, 64, 1, 1) is dense in both layouts and never took them.
+FIRST_DESIGN_NCHW_MS = {
+    (torch.float32, (4, 64, 160, 160)): 0.3353,
+    (torch.float32, (1, 64, 160, 160)): 0.0859,
+    (torch.float32, (32, 64, 160, 160)): 1.9404,
+    (torch.float32, (16, 64, 128, 160)): 0.8030,
+    (torch.float32, (1, 64, 20, 20)): 0.0712,
+    (torch.float32, (2, 64, 10, 13)): 0.0637,
+    (torch.float32, (1, 64, 7, 5)): 0.0605,
+    (torch.float32, (3, 64, 161, 33)): 0.0764,
+    (torch.float32, (1, 64, 8, 16)): 0.0635,
+    (torch.float32, (2, 64, 68, 84)): 0.0763,
+    (torch.float32, (2, 64, 56, 56)): 0.0753,
+    (torch.bfloat16, (4, 64, 160, 160)): 0.0994,
+    (torch.bfloat16, (1, 64, 160, 160)): 0.0369,
+    (torch.bfloat16, (32, 64, 160, 160)): 0.5980,
+    (torch.bfloat16, (16, 64, 128, 160)): 0.2425,
+    (torch.bfloat16, (1, 64, 20, 20)): 0.0355,
+    (torch.bfloat16, (2, 64, 10, 13)): 0.0336,
+    (torch.bfloat16, (1, 64, 7, 5)): 0.0318,
+    (torch.bfloat16, (3, 64, 161, 33)): 0.0369,
+    (torch.bfloat16, (1, 64, 8, 16)): 0.0320,
+    (torch.bfloat16, (2, 64, 68, 84)): 0.0365,
+    (torch.bfloat16, (2, 64, 56, 56)): 0.0365}
+# the conv's launches on its NCHW routes: the key counted() adds with nchw
+NCHW_KEY = "conv3x3_bn_silu (nchw)"
+
 MAP50_GATE = 0.003                   # ACCURACY.md: within 0.3 mAP@50 points
 
 
@@ -302,11 +333,7 @@ def profile_requests(engine, pair, wall_ms: float, n: int = 3):
                                        "projections_tf32_kernel",
                                        "attention_tf32_kernel"),
               "greedy_nms": ("nms_mask_kernel", "nms_scan_kernel"),
-              "conv3x3_bn_silu": ("conv3x3_bf16_nhwc_kernel",
-                                  "conv3x3_tf32_nhwc_kernel",
-                                  "conv3x3_bf16_nchw_kernel",
-                                  "conv3x3_f32_nchw_kernel",
-                                  "pack_weights_kernel"),
+              "conv3x3_bn_silu": ("conv3x3_bf16_", "conv3x3_tf32_"),
               "conv_int8_bn_act": ("conv_int8_kernel",
                                    "conv_int8_tma_kernel")}
     busy_ms = busy / n / 1e3
@@ -379,11 +406,12 @@ INT8_PATH_KEYS = {"stem_launches": "conv_int8_bn_act (stem)",
                   "grouped_launches": "conv_int8_bn_act (grouped)"}
 
 
-def counted(fn, int8: bool = False):
+def counted(fn, int8: bool = False, nchw: bool = False):
     """fn() with every wrapper's launch count set to 0 just before it; (its
     result, the launches it made): the three TPU kernels' wrappers, and
     with int8 the int8 conv's too, with its launches on the "stem" and
-    "grouped" paths under INT8_PATH_KEYS' names."""
+    "grouped" paths under INT8_PATH_KEYS' names; with nchw the fused conv's
+    launches on its NCHW routes under NCHW_KEY."""
     from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
     from icafusion_tpu_torch.kernels.cross_attention import dual_cross_attention
     from icafusion_tpu_torch.kernels.nms import greedy_nms
@@ -395,8 +423,11 @@ def counted(fn, int8: bool = False):
     if int8:
         for attr in INT8_PATH_KEYS:
             setattr(conv_int8_bn_act, attr, 0)
+    conv3x3_bn_silu.nchw_launches = 0
     out = fn()
     launches = {w.__name__: w.launches for w in wrappers}
+    if nchw:
+        launches[NCHW_KEY] = conv3x3_bn_silu.nchw_launches
     if int8:
         launches.update({key: getattr(conv_int8_bn_act, attr)
                          for attr, key in INT8_PATH_KEYS.items()})

@@ -13,10 +13,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from icafusion_tpu_torch.smoke.common import (BATCH, CONVS_PER_FORWARD, REPO,
-                                              S640, S640_CFG, bound,
-                                              counted, done, extval_files,
-                                              matched, phase, queued_ms)
+from icafusion_tpu_torch.smoke.common import (BATCH, CONVS_PER_FORWARD,
+                                              NCHW_KEY, REPO, S640, S640_CFG,
+                                              bound, counted, done,
+                                              extval_files, matched, phase,
+                                              queued_ms)
 
 DEV = "cuda"             # the card ("cpu" rehearses the phase at a tiny size)
 FLAG_SPEC, FLAG_PX = "zoo:tfb:l", 640
@@ -91,7 +92,8 @@ def onnx_slices(model, work: Path, total: dict) -> None:
     """(a) the flagship's fp32 ONNX and (b) its --nms graph, each through
     cli.export's export_model with --validate: the numpy evaluator's run
     held to the port's forward on the card; 3 attention and 6 fused conv
-    launches (and 1 NMS) in the validate forward."""
+    launches (and 1 NMS) in the validate forward, whose NCHW pair puts
+    all 6 convs on the NCHW routes."""
     from icafusion_tpu_torch.cli.export import export_model
     mc = model.cfg
     for tag, extra in (("a", []), ("b", ["--nms", "--conf-thres",
@@ -99,10 +101,12 @@ def onnx_slices(model, work: Path, total: dict) -> None:
         t = time.perf_counter()
         args = _args(["--include", "onnx", "--validate", *extra])
         ok, launches = counted(lambda: export_model(args, mc, model,
-                                                    work / f"l640{tag}"))
+                                                    work / f"l640{tag}"),
+                               nchw=True)
         size = (work / f"l640{tag}.onnx").stat().st_size
         want = {"dual_cross_attention": 3, "conv3x3_bn_silu":
-                CONVS_PER_FORWARD, "greedy_nms": int(tag == "b")}
+                CONVS_PER_FORWARD, "greedy_nms": int(tag == "b"),
+                NCHW_KEY: CONVS_PER_FORWARD}
         print(f"   14{tag}: {size} B ONNX{' (conf ' + extra[2] + ')' if extra else ''}, "
               f"export + numpy evaluator + card forward "
               f"{time.perf_counter() - t:.1f} s; launches {launches}")
@@ -193,9 +197,11 @@ def pt2_slice(model, work: Path, total: dict) -> None:
     """(d) cli.export --include pt2 of the flagship on the card, fp32: 3
     icafusion::dual_cross_attention and 6 icafusion::conv3x3_bn_silu nodes
     in the program's graph; torch.export.load and a run within 1e-5 of the
-    eager forward (bit-equality printed) with the kernels launched; then
-    the same in bf16 (a program exported from the bf16 cast), its NMS
-    detections matched against the eager bf16 forward's, printed."""
+    eager forward (bit-equality printed) with the kernels launched, the 6
+    convs on the NCHW routes (the program's inputs are ordinary NCHW
+    tensors), and its device ms a forward (queued_ms); then the same in
+    bf16 (a program exported from the bf16 cast), its NMS detections
+    matched against the eager bf16 forward's, printed."""
     import torch.export as texport
     from icafusion_tpu_torch.cli.export import (export_model, export_program,
                                                 program_ops)
@@ -214,16 +220,18 @@ def pt2_slice(model, work: Path, total: dict) -> None:
             for _ in range(2))
     run = program.module()
     with torch.inference_mode():
-        got, launches = counted(lambda: run(x, y))
+        got, launches = counted(lambda: run(x, y), nchw=True)
         want = model(x, y, logits=True)
+        fwd_ms = queued_ms(lambda: run(x, y), iters=10)
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     equal = all(torch.equal(a, b) for a, b in zip(got, want))
     print(f"   14d: fp32 .pt2 {(work / 'l640.pt2').stat().st_size} B, export "
           f"+ save {export_s:.1f} s; nodes {program_ops(program)}; loaded run "
           f"vs eager max |diff| {err:.3g} (bit-equal: {equal}); launches "
-          f"{launches}")
+          f"{launches}; device {fwd_ms:.3f} ms a forward (queued_ms)")
     assert err <= PT2_TOL * max(1.0, float(want[0].abs().max())), err
-    assert launches == {**want_ops, "greedy_nms": 0}, launches
+    assert launches == {**want_ops, "greedy_nms": 0,
+                        NCHW_KEY: CONVS_PER_FORWARD}, launches
     _add(total, launches)
     (work / "l640.pt2").unlink()
     del program, run
@@ -233,21 +241,31 @@ def pt2_slice(model, work: Path, total: dict) -> None:
     texport.save(prog16, str(work / "l640_bf16.pt2"))
     prog16 = texport.load(str(work / "l640_bf16.pt2"))
     assert program_ops(prog16) == want_ops, program_ops(prog16)
+    run16 = prog16.module()
     with torch.inference_mode():
         xb, yb = x.bfloat16(), y.bfloat16()
+        got16, launches16 = counted(lambda: run16(xb, yb), nchw=True)
+        fwd16_ms = queued_ms(lambda: run16(xb, yb), iters=10)
         dets = [detections_to_numpy(non_max_suppression(p[0], 0.25, 0.45))
-                for p in (prog16.module()(xb, yb), half(xb, yb, logits=True))]
+                for p in (got16, half(xb, yb, logits=True))]
     share = matched(dets[0][0], dets[1][0])
     print(f"   14d: bf16 .pt2 {time.perf_counter() - t:.1f} s; detections "
           f"{len(dets[0][0])} (program) vs {len(dets[1][0])} (eager), "
-          f"matched {share:.4f} (printed, not gated)")
+          f"matched {share:.4f} (printed, not gated); launches "
+          f"{launches16}; device {fwd16_ms:.3f} ms a forward (queued_ms)")
+    assert launches16 == {**want_ops, "greedy_nms": 0,
+                          NCHW_KEY: CONVS_PER_FORWARD}, launches16
+    _add(total, launches16)
     (work / "l640_bf16.pt2").unlink()
 
 
 def gradcam_slice(total: dict) -> None:
     """(e) Grad-CAM on trained n320 at Detect's three inputs and at layer
     4 (the gradient crosses layer 6's fused convs and the fusion
-    attention): the card's saliency against the port's on the CPU."""
+    attention): the card's saliency against the port's on the CPU, from
+    the decoded pair as it comes (channels_last: permuted NHWC bytes) and
+    from an ordinary NCHW copy of it, whose fused convs take the NCHW
+    routes."""
     from icafusion_tpu_torch.cli._common import load_model_for_inference
     from icafusion_tpu_torch.models.gradcam import (default_cam_layers,
                                                     gradcam_saliency)
@@ -267,15 +285,22 @@ def gradcam_slice(total: dict) -> None:
     layers = default_cam_layers(cpu.cfg) + (CAM_BACKBONE,)
     for layer in layers:
         want = gradcam_saliency(cpu, x, y, layer, upsample_to=(320, 320))
-        got, launches = counted(lambda: gradcam_saliency(
-            card, x.to(DEV), y.to(DEV), layer, upsample_to=(320, 320)).cpu())
-        err = float((got - want).abs().max())
-        print(f"   14e: layer {layer}: saliency card vs CPU max |diff| "
-              f"{err:.3g}, peak {float(got.max()):.3f}; launches {launches}")
-        assert err <= CAM_TOL, (layer, err)
-        assert launches["dual_cross_attention"] == 6, launches
-        assert launches["conv3x3_bn_silu"] > 0, launches
-        _add(total, launches)
+        for tag, (xd, yd) in (("channels_last", (x.to(DEV), y.to(DEV))),
+                              ("NCHW", (x.to(DEV).contiguous(),
+                                        y.to(DEV).contiguous()))):
+            got, launches = counted(lambda: gradcam_saliency(
+                card, xd, yd, layer, upsample_to=(320, 320)).cpu(),
+                nchw=True)
+            err = float((got - want).abs().max())
+            print(f"   14e: layer {layer}, {tag} pair: saliency card vs CPU "
+                  f"max |diff| {err:.3g}, peak {float(got.max()):.3f}; "
+                  f"launches {launches}")
+            assert err <= CAM_TOL, (layer, tag, err)
+            assert launches["dual_cross_attention"] == 6, launches
+            assert launches["conv3x3_bn_silu"] > 0, launches
+            if tag == "NCHW":
+                assert launches[NCHW_KEY] > 0, launches
+            _add(total, launches)
     assert all(p.grad is None for p in card.parameters())
 
 
@@ -425,7 +450,7 @@ def ensemble_slice(total: dict) -> None:
             for _ in range(2))
     with torch.inference_mode():
         (pred, logits), launches = counted(
-            lambda: ensemble_predict(members, x, y))
+            lambda: ensemble_predict(members, x, y), nchw=True)
         own = [m(x, y, logits=True) for m in members]
     n = own[0][0].shape[1]
     for i, (p, l) in enumerate(own):
@@ -434,6 +459,7 @@ def ensemble_slice(total: dict) -> None:
     _add(total, launches)
     print(f"   14g: 2 members, candidates {tuple(pred.shape)} equal each "
           f"member's own; launches {launches}")
+    assert launches[NCHW_KEY] > 0, launches
 
 
 def export_slice(card: str, work: Path):

@@ -22,6 +22,19 @@ gated run does not make. Each subcommand needs a CUDA device.
         DIR, as for attention, so that one call can time the first
         designs of a parent checkout beside this one's.
 
+    python3 port_probes.py conv-layouts [--root DIR] [--iters N]
+
+        The 64-channel conv (conv3x3_bn_silu) in both dtypes and both
+        layouts at every shape of smoke/common.CONV_SHAPES: each call held
+        against the plain version at phase 3b's gates (output strides equal
+        to the input's), then timed by torch.profiler over N calls (default
+        50) by kernel name, beside one cuDNN call (BN-folded weights, bias,
+        then SiLU) on the same input. Prints the -Xptxas -v lines of the
+        conv kernels where this process built the library. The package
+        comes from DIR, as for attention, so that one call can time a
+        parent checkout's kernels beside this one's: parent, change,
+        change, parent.
+
     python3 port_probes.py fp32-variants
 
         Where the fp32 kernels' time goes: copies of
@@ -32,6 +45,24 @@ gated run does not make. Each subcommand needs a CUDA device.
         flagship attention and the (B, 64, 160, 160) conv, B = 4 and 32,
         timed by torch.profiler. A cut copy gives wrong sums and is only
         timed.
+
+    python3 port_probes.py conv-variants [--iters N]
+
+        Which NCHW load path each dtype of the 64-channel conv wants, and
+        where bf16 NCHW's time goes: copies of csrc/conv3x3_bn_silu.cu
+        (and hopper.cuh) whose C entry takes any route (CONV_VARIANTS: as
+        shipped; without bf16's halo fill, loads and stores; without bf16's
+        NCHW stores, the epilogue's arithmetic kept; bf16 storing each
+        pixel apart, 2 bytes, at every W), each built beside
+        build/ and called through its C entry with the route forced, at
+        the shapes of smoke/common.CONV_SHAPES whose rows are a multiple of
+        16 bytes in bf16 (so both NCHW routes can run them), in both
+        dtypes: nchw_tma and nchw_ld, and nhwc on the same values, every
+        case of the copies that compute held against the plain version at
+        phase 3b's gates, then timed by torch.profiler over N calls
+        (default 50) in two passes, the second in reverse order, so that
+        the two readings of a case give its spread. A cut copy gives wrong
+        values and is only timed.
 
     python3 port_probes.py fp64
 
@@ -236,6 +267,64 @@ def fp32_kernels(root: Path) -> dict:
     return out
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name without its namespaces and arguments."""
+    import re
+    m = re.search(r"\w+_kernel\b", key)
+    return m.group(0) if m else key[:40]
+
+
+def conv_layouts(root: Path, iters: int) -> dict:
+    sys.path.insert(0, str(root))
+    from icafusion_tpu_torch.smoke import common as cs
+    from icafusion_tpu_torch.kernels import _build, packed_conv
+    assert Path(packed_conv.__file__).is_relative_to(root), packed_conv.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b = _build.build()
+    print(f"   {b.path.name}: nvcc {b.seconds:.1f} s")
+    conv = False
+    for line in b.log.splitlines():
+        if "Compiling entry" in line:
+            conv = "conv3x3" in line
+        if conv and any(k in line for k in ("Compiling entry", "registers",
+                                            "spill", "smem")):
+            print(f"   {line.strip()}")
+    route = getattr(packed_conv, "route", None)   # absent before the routes
+    gen = torch.Generator().manual_seed(0)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in cs.CONV_SHAPES:
+            for lname, layout in (("NHWC", torch.channels_last),
+                                  ("NCHW", torch.contiguous_format)):
+                x, w, sc, bi = cs.conv_case(shape, dtype, layout, gen)
+                fn = lambda: packed_conv.conv3x3_bn_silu(x, w, sc, bi)
+                got = fn()
+                ref = packed_conv.conv3x3_bn_silu_reference(x, w, sc, bi)
+                torch.cuda.synchronize()
+                assert got.stride() == x.stride(), (got.stride(), x.stride())
+                err = float((got.float() - ref.float()).abs().max())
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           rtol=tol[dtype], atol=tol[dtype])
+                by = cs.device_times(fn, iters=iters, warmup=5)
+                w_f = (w.float() * sc[:, None, None, None]).to(dtype)
+                lib = cs.device_ms(lambda: cs.conv_library(x, w_f,
+                                                           bi.to(dtype)),
+                                   iters=iters, warmup=5)
+                key = f"{str(dtype)[6:]} {lname} {shape}"
+                out[key] = {
+                    "route": route(x) if route else None,
+                    "max_abs_err": err, "ms": sum(by.values()),
+                    "cudnn_ms": lib,
+                    "kernels": {_kernel_name(k): round(v, 5)
+                                for k, v in by.items()}}
+                print(f"   {key:36s} {out[key]}", flush=True)
+                del x, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 # fp32-variants: name -> replacements (old, new) of every occurrence in
 # the fp32 kernels' sources
 FP32_VARIANTS = {
@@ -328,6 +417,125 @@ def fp32_variants() -> dict:
             torch.cuda.empty_cache()
     finally:
         _build.library = real
+    return out
+
+
+# conv-variants: name -> replacements (old, new) of every occurrence in
+# csrc/conv3x3_bn_silu.cu; every copy's C entry takes any route
+ANY_ROUTE = ("  if (route != route_of(W, is_bf16, nhwc)) "
+             "return cudaErrorInvalidValue;\n", "")
+CONV_VARIANTS = {
+    "shipped": (ANY_ROUTE,),
+    "bf16: no halo fill": (
+        ANY_ROUTE,
+        ("      *reinterpret_cast<uint4*>(halo + p * 128 + ((c ^ (p & 7)) "
+         "<< 4)) =\n          make_uint4(v[k][0], v[k][1], v[k][2], "
+         "v[k][3]);", "      (void)p;")),
+    "bf16: no NCHW stores": (
+        ANY_ROUTE,
+        ("          if (h >= g.H) continue;",
+         "          if (h >= g.H || lo != -12345.f) continue;")),
+    "bf16 nchw_ld: two 2-byte stores at any W": (
+        ANY_ROUTE,
+        ("          if (R == kNchwTma || (g.W & 1) == 0) {",
+         "          if constexpr (R == kNchwTma) {")),
+}
+CONV_ROUTES = ("nhwc", "nchw_tma", "nchw_ld")   # the C entry's Route
+
+
+def conv_variants(iters: int) -> dict:
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from icafusion_tpu_torch.kernels import _build
+    from icafusion_tpu_torch.kernels.packed_conv import (
+        conv3x3_bn_silu_reference)
+    from icafusion_tpu_torch.smoke import common as cs
+    names = ("conv3x3_bn_silu.cu", "hopper.cuh")
+    texts = {n: (_build.CSRC / n).read_text() for n in names}
+    work = _build.BUILD_DIR / "conv_variants"
+
+    def build(i_name):
+        i, name = i_name
+        d = work / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        text = texts[names[0]]
+        for a, b in CONV_VARIANTS[name]:
+            assert a in text, (name, a)
+            text = text.replace(a, b)
+        (d / names[0]).write_text(text)
+        (d / names[1]).write_text(texts[names[1]])
+        so = d / "lib.so"
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                            "-o", str(so), str(d / names[0])],
+                           capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr
+        fn = ctypes.CDLL(str(so)).icaf_conv3x3_bn_silu
+        fn.argtypes = _build.SIGNATURES["icaf_conv3x3_bn_silu"]
+        fn.restype = ctypes.c_int
+        return name, fn
+
+    with ThreadPoolExecutor(len(CONV_VARIANTS)) as pool:
+        entries = dict(pool.map(build, enumerate(CONV_VARIANTS)))
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    shapes = [s for s in cs.CONV_SHAPES if s[3] % 8 == 0 and s[2:] != (1, 1)]
+    cases = []   # (key, entry, (x, w, scale, bias), route, checked)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in shapes:
+            nchw = cs.conv_case(shape, dtype, torch.contiguous_format, gen)
+            nhwc = (nchw[0].contiguous(memory_format=torch.channels_last),
+                    *nchw[1:])
+            for name, entry in entries.items():
+                if dtype == torch.float32 and name != "shipped":
+                    continue
+                routes = CONV_ROUTES if name == "shipped" else CONV_ROUTES[1:]
+                if name.startswith("bf16 nchw_ld"):
+                    routes = ("nchw_ld",)
+                for r in routes:
+                    cases.append((f"{str(dtype)[6:]} {shape} {r} [{name}]",
+                                  entry, nhwc if r == "nhwc" else nchw, r,
+                                  "no " not in name))
+
+    def call(entry, args, r):
+        x, w, scale, bias = args
+        out = torch.empty_like(x)
+        B, _, H, W = x.shape
+        err = entry(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), B, H, W,
+                    int(x.dtype == torch.bfloat16), int(r == "nhwc"),
+                    CONV_ROUTES.index(r), _build.stream_handle(x.device))
+        assert err == 0, err
+        return out
+
+    out = {}
+    for key, entry, args, r, checked in cases:
+        got = call(entry, args, r)
+        torch.cuda.synchronize()
+        assert got.stride() == args[0].stride(), key
+        if checked:
+            ref = conv3x3_bn_silu_reference(*args)
+            t = tol[args[0].dtype]
+            torch.testing.assert_close(got.float(), ref.float(), rtol=t,
+                                       atol=t)
+        out[key] = {"max_abs_err": float((got.float() - ref.float()).abs()
+                                         .max()) if checked else None,
+                    "ms": []}
+    for order in (cases, cases[::-1]):
+        for key, entry, args, r, _ in order:
+            out[key]["ms"].append(round(cs.device_ms(
+                lambda: call(entry, args, r), iters=iters, warmup=5), 5))
+    for key, row in out.items():
+        print(f"   {key:64s} {row}", flush=True)
+    # the 2-byte stores' copy at every NCHW width
+    entry = entries["bf16 nchw_ld: two 2-byte stores at any W"]
+    for shape in cs.CONV_SHAPES:
+        args = cs.conv_case(shape, torch.bfloat16, torch.contiguous_format,
+                            gen)
+        torch.testing.assert_close(
+            call(entry, args, "nchw_ld").float(),
+            conv3x3_bn_silu_reference(*args).float(), rtol=1e-2, atol=1e-2)
+    print("   2-byte stores: every NCHW shape within 1e-2", flush=True)
     return out
 
 
@@ -1032,7 +1240,12 @@ def main(argv=None) -> int:
     a.add_argument("--root", type=Path, default=HERE)
     f = sub.add_parser("fp32")
     f.add_argument("--root", type=Path, default=HERE)
+    c = sub.add_parser("conv-layouts")
+    c.add_argument("--root", type=Path, default=HERE)
+    c.add_argument("--iters", type=int, default=50)
     sub.add_parser("fp32-variants")
+    v = sub.add_parser("conv-variants")
+    v.add_argument("--iters", type=int, default=50)
     sub.add_parser("fp64")
     sub.add_parser("int8-splits")
     sub.add_parser("int8-phases")
@@ -1060,8 +1273,13 @@ def main(argv=None) -> int:
     elif args.cmd == "fp32":
         res = {"root": str(args.root.resolve()),
                "fp32": fp32_kernels(args.root.resolve())}
+    elif args.cmd == "conv-layouts":
+        res = {"root": str(args.root.resolve()),
+               "conv_layouts": conv_layouts(args.root.resolve(), args.iters)}
     elif args.cmd == "fp32-variants":
         res = {"fp32_variants": fp32_variants()}
+    elif args.cmd == "conv-variants":
+        res = {"conv_variants": conv_variants(args.iters)}
     elif args.cmd == "int8-splits":
         res = {"int8_splits": int8_splits()}
     elif args.cmd == "int8-phases":

@@ -15,6 +15,7 @@ from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
 from icafusion_tpu_torch.kernels.cross_attention import (
     dual_cross_attention, dual_cross_attention_reference)
 from icafusion_tpu_torch.kernels.nms import greedy_nms, greedy_nms_reference
+from icafusion_tpu_torch.kernels import _build, packed_conv
 from icafusion_tpu_torch.kernels.packed_conv import (conv3x3_bn_silu,
                                                      conv3x3_bn_silu_reference)
 from icafusion_tpu_torch.models.assembler import build_model
@@ -288,8 +289,8 @@ def _conv_args(shape, dtype, layout, dev, seed=0):
                                     torch.contiguous_format])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_kernel_matches_reference(dev, shape, layout, dtype):
-    """Ragged tiles in both layouts (4 x 16-pixel tiles in bf16
-    channels_last, 16 x 16 otherwise). fp32: the JAX Pallas test's 1e-4;
+    """Ragged tiles in both layouts (4 x 16-pixel tiles in bf16, 8 x 16 in
+    fp32; NCHW on both of its routes). fp32: the JAX Pallas test's 1e-4;
     bf16: both sum exact products in fp32 and round once, so they differ by
     about one bf16 ulp."""
     args = _conv_args(shape, dtype, layout, dev)
@@ -300,6 +301,78 @@ def test_conv_kernel_matches_reference(dev, shape, layout, dtype):
     assert got.dtype == dtype and got.stride() == args[0].stride()
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["forward", "grad"])
+@pytest.mark.parametrize("shape", smoke_common.CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_nchw_routes_match_reference(dev, shape, dtype, grad):
+    """NCHW maps at every shape of chip_smoke.py's phase 3b, on their route
+    (packed_conv.route: nchw_tma where a row is a multiple of 16 bytes,
+    else nchw_ld; (1, 64, 1, 1) is dense in both layouts and takes nhwc):
+    one launch, counted as NCHW, an NCHW output within phase 3b's gates of
+    the plain version; under grad through Conv3x3BnSilu, x's gradient
+    against autograd through the plain version (GRAD_TOL)."""
+    args = _conv_args(shape, dtype, torch.contiguous_format, dev)
+    if grad:
+        args = [t.requires_grad_() for t in args]
+    nchw = packed_conv.route(args[0]) != "nhwc"
+    assert nchw == (shape[2:] != (1, 1))
+    before = conv3x3_bn_silu.launches, conv3x3_bn_silu.nchw_launches
+    got = conv3x3_bn_silu(*args)
+    assert (conv3x3_bn_silu.launches, conv3x3_bn_silu.nchw_launches) == (
+        before[0] + 1, before[1] + nchw)
+    assert got.stride() == args[0].stride() and (got.grad_fn is not None) \
+        == grad
+    want = conv3x3_bn_silu_reference(*args)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if grad:
+        g = torch.randn_like(got)
+        a, = torch.autograd.grad(got, args[0], g)
+        b, = torch.autograd.grad(want, args[0], g)
+        tol = GRAD_TOL[dtype]
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * float(b.float().abs().max()))
+
+
+@pytest.mark.parametrize("W,route", [(40, "nchw_tma"), (42, "nchw_ld")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_nchw_aligned_and_unaligned_rows(dev, dtype, W, route):
+    """Two NCHW maps a column apart in width: rows of 80 or 160 bytes (W =
+    40) load by TMA, rows of 84 or 168 (W = 42) by the threads' own loads;
+    both within the gate, ragged in both directions (H = 19)."""
+    args = _conv_args((3, 64, 19, W), dtype, torch.contiguous_format, dev,
+                      seed=W)
+    assert packed_conv.route(args[0]) == route
+    before = conv3x3_bn_silu.nchw_launches
+    got = conv3x3_bn_silu(*args)
+    assert conv3x3_bn_silu.nchw_launches == before + 1
+    assert got.is_contiguous()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(),
+                               conv3x3_bn_silu_reference(*args).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_conv_c_entry_refuses_another_route(dev):
+    """icaf_conv3x3_bn_silu checks the route the wrapper passes against its
+    own route_of and launches nothing where they differ."""
+    x, w, s, b = _conv_args((1, 64, 8, 40), torch.bfloat16,
+                            torch.contiguous_format, dev)
+    out = torch.zeros_like(x)
+    lib = _build.library()
+    call = lambda nhwc, route: lib.icaf_conv3x3_bn_silu(
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), b.data_ptr(),
+        out.data_ptr(), 1, 8, 40, 1, nhwc, route,
+        _build.stream_handle(x.device))
+    for nhwc, route in ((0, 0), (0, 2), (1, 1)):
+        assert call(nhwc, route) != 0
+    assert not out.any()
+    assert call(0, packed_conv.ROUTES.index("nchw_tma")) == 0
+    torch.testing.assert_close(out.float(),
+                               conv3x3_bn_silu_reference(x, w, s, b).float(),
+                               rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize("N", [1, 63, 65])
