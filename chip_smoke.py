@@ -80,8 +80,7 @@ exit code is non-zero and the final line is never printed:
    batch-1 predict_arrays, with the latency of a lone request and the
    time a pair at bucket 32; (d) the HTTP server over s640 on 512 x 640 in
    bf16 with a MicroBatcher, 16 clients POSTing the 141 pairs as base64
-   JPEGs, held to predict_arrays, /v1/stats and a 400; (e)
-   ServingEngine.throughput at l 640, batch 4, bf16, beside phase 4c;
+   JPEGs, held to predict_arrays, /v1/stats and a 400;
 10. every shipped model config: (a) yolov5l_NiNfusion, yolov5l_Add,
    yolov5x_Transfusion, yolov5_VGG16_Transfusion and
    yolov5_ResNet50_Transfusion at 640 with seeded He-uniform weights
@@ -675,8 +674,7 @@ def main(argv=None) -> int:
         s640_fp32_map50 = val_slice(Path(tmp))
 
     with tempfile.TemporaryDirectory() as tmp:
-        served = serve_slice(Path(tmp), model,
-                             1e3 * BATCH / float(np.median(steady)), card)
+        served = serve_slice(Path(tmp), model)
     launches = {k: v + served[k] for k, v in launches.items()}
     del model, engine, fp32
     torch.cuda.empty_cache()

@@ -8,8 +8,10 @@ the device; the valid rows come back per image and are unpadded, and
 optionally rescaled to the native image size.
 
 ``predict_paths`` decodes image files (data/decode.py) and serves them,
-pipelined; ``warmup`` runs one batch; ``throughput`` times steady serving;
-``quantize`` switches to int8 W8A8 serving (utils/quantize.py).
+pipelined; ``warmup`` runs one batch; ``quantize`` switches to int8 W8A8
+serving (utils/quantize.py). The call's stages are ``span``s
+(utils/profiling.py): ``serve.upload``, ``serve.forward``, ``serve.nms``,
+``serve.fetch`` with its four ``serve.d2h`` copies.
 
 Data parallel (``n_devices``, parallel/mesh.py): one replica of the model
 on each mesh device and every batch split into contiguous row shards, each
@@ -26,7 +28,6 @@ from __future__ import annotations
 import copy
 import math
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Union
 
@@ -41,6 +42,7 @@ from icafusion_tpu_torch.parallel.mesh import (Mesh, device_count,
                                                device_scope, make_mesh,
                                                replicate, shard_batch)
 from icafusion_tpu_torch.utils.general import resolve_device
+from icafusion_tpu_torch.utils.profiling import span
 
 TOP_K = 1024   # candidates entering NMS, as the JAX engine serves
 
@@ -102,35 +104,37 @@ class ServingEngine:
         self.model = self.replicas[0]
 
     @torch.inference_mode()
-    def _serve(self, rgb, ir) -> Detections:
-        """(B, H, W, 3) uint8 arrays or tensors -> detections on the first
-        device, queued without a wait for the host: each replica runs its
-        rows on its own device, and their detections are gathered."""
+    def _serve(self, xs: List[torch.Tensor],
+               ys: List[torch.Tensor]) -> Detections:
+        """The rows of (B, H, W, 3) uint8 pairs, sharded onto the mesh
+        (``shard_batch``) -> detections on the first device, queued without
+        a wait for the host: each replica runs its rows on its own device,
+        and their detections are gathered."""
         def prep(x):
             return (x.permute(0, 3, 1, 2).float() / 255.0).to(self.dtype)
 
-        with self._lock:
-            out = []
-            for model, dev, x, y in zip(self.replicas, self.mesh.devices,
-                                        shard_batch(rgb, self.mesh),
-                                        shard_batch(ir, self.mesh)):
-                with device_scope(dev):
+        out = []
+        for model, dev, x, y in zip(self.replicas, self.mesh.devices, xs, ys):
+            with device_scope(dev):
+                with span("serve.forward"):
                     pred = model(prep(x), prep(y))
+                with span("serve.nms"):
                     out.append(non_max_suppression(
                         pred, conf_thres=self.conf_thres,
                         iou_thres=self.iou_thres, max_det=self.max_det,
                         top_k=TOP_K))
-            if len(out) == 1:
-                return out[0]
-            dev0 = self.mesh.devices[0]
-            return Detections(*(torch.cat([t.to(dev0, non_blocking=True)
-                                           for t in ts]) for ts in zip(*out)))
+        if len(out) == 1:
+            return out[0]
+        dev0 = self.mesh.devices[0]
+        return Detections(*(torch.cat([t.to(dev0, non_blocking=True)
+                                       for t in ts]) for ts in zip(*out)))
 
     def _dispatch(self, rgb: np.ndarray, ir: np.ndarray,
                   batch: Optional[int] = None):
         """Pad to the engine batch, or to an explicit smaller ``batch``
-        bucket (serve/batcher.py), upload and run; returns (detections still
-        on the device, n). The host waits only for the upload."""
+        bucket (serve/batcher.py), upload and run, under the engine's lock;
+        returns (detections still on the device, n). The host waits only
+        for the upload."""
         n = rgb.shape[0]
         (H, W), B = self.canvas, batch or self.batch_size
         if B > self.batch_size:
@@ -139,23 +143,31 @@ class ServingEngine:
         if n > B or rgb.shape[1:] != (H, W, 3) or ir.shape != rgb.shape:
             raise ValueError(f"predict_arrays: got {rgb.shape} / {ir.shape}, "
                              f"want at most {B} pairs of ({H}, {W}, 3)")
-        if n < B:
-            pad = np.zeros((B - n, H, W, 3), np.uint8)
-            rgb = np.concatenate([rgb, pad])
-            ir = np.concatenate([ir, pad])
-        return self._serve(rgb, ir), n
+        with self._lock:
+            with span("serve.upload"):
+                if n < B:
+                    pad = np.zeros((B - n, H, W, 3), np.uint8)
+                    rgb = np.concatenate([rgb, pad])
+                    ir = np.concatenate([ir, pad])
+                xs, ys = (shard_batch(v, self.mesh) for v in (rgb, ir))
+            return self._serve(xs, ys), n
 
     def _finalize(self, dets: Detections, n: int,
                   orig_hw=None) -> List[np.ndarray]:
         """Copy the detections to the host, drop the padding images and
         rescale to native coordinates where orig_hw is given (the blocking
         half of _dispatch)."""
-        out = detections_to_numpy(dets)[:n]
-        if orig_hw is not None:
-            for i, hw0 in enumerate(orig_hw[:n]):
-                if hw0 is not None and len(out[i]):
-                    out[i][:, :4] = scale_coords_np(self.canvas, out[i][:, :4],
-                                                    tuple(hw0))
+        with span("serve.fetch"):
+            host = []
+            for t in dets:
+                with span("serve.d2h"):
+                    host.append(t.cpu())
+            out = detections_to_numpy(Detections(*host))[:n]
+            if orig_hw is not None:
+                for i, hw0 in enumerate(orig_hw[:n]):
+                    if hw0 is not None and len(out[i]):
+                        out[i][:, :4] = scale_coords_np(
+                            self.canvas, out[i][:, :4], tuple(hw0))
         return out
 
     def warmup(self):
@@ -254,20 +266,3 @@ class ServingEngine:
             if pending is not None:
                 outs.extend(self._finalize(*pending))
         return outs
-
-    def throughput(self, iters: int = 20) -> float:
-        """Steady serving rate in pairs a second by the host clock: one
-        batch of random pairs uploaded once, one warm-up call, then iters
-        calls on the device tensors, with one synchronisation at the end
-        (each replica's rows come from the first device)."""
-        (H, W), B = self.canvas, self.batch_size
-        rng = np.random.default_rng(0)
-        rgb, ir = (torch.from_numpy(rng.integers(0, 256, (B, H, W, 3),
-                                                 np.uint8)).to(self.device)
-                   for _ in range(2))
-        self._serve(rgb, ir).scores.sum().item()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            dets = self._serve(rgb, ir)
-        dets.scores.sum().item()
-        return B * iters / (time.perf_counter() - t0)

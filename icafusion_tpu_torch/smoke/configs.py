@@ -9,6 +9,7 @@ import time
 import numpy as np
 import torch
 
+from icafusion_tpu_torch.parallel.mesh import shard_batch
 from icafusion_tpu_torch.smoke.common import (BATCH, REPO, counted, device_ms,
                                               done, phase, timing_source)
 from icafusion_tpu_torch.smoke.train import train_card_vs_cpu
@@ -165,7 +166,8 @@ def full_width_slice(card: str) -> dict:
             for x in out), [x.shape for x in out]
         for k, v in launches.items():
             total[k] += v
-        on_card = [torch.from_numpy(a).cuda() for a in pair]
+        on_card = [shard_batch(torch.from_numpy(a).cuda(), engine.mesh)
+                   for a in pair]
         dev_ms = device_ms(lambda: engine._serve(*on_card), iters=5,
                            warmup=1)
         print(f"   {n_params / 1e6:.1f} M parameters; fp32 decoded "

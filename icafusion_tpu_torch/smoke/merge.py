@@ -53,7 +53,9 @@ def _device_ms(engine, rgb, ir) -> float:
     """Device ms of a request's forward and NMS on uploaded pairs, its
     kernels summed (torch.profiler; queued_ms where CUPTI records
     nothing)."""
-    return device_ms(lambda: engine._serve(rgb, ir), iters=10)
+    from icafusion_tpu_torch.parallel.mesh import shard_batch
+    xs, ys = (shard_batch(t, engine.mesh) for t in (rgb, ir))
+    return device_ms(lambda: engine._serve(xs, ys), iters=10)
 
 
 def _merged_int8_convs_exact(engine, pair) -> str:

@@ -1,6 +1,6 @@
 """Phase 8 of chip_smoke.py and its --trained-l640 run: serving through the
 entry points a user calls (cli.detect, predict_paths, the MicroBatcher,
-the HTTP server, throughput, video)."""
+the HTTP server, video)."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from icafusion_tpu_torch.smoke.common import (BATCH, CONVS_PER_FORWARD,
+from icafusion_tpu_torch.smoke.common import (CONVS_PER_FORWARD,
                                               MAP50_GATE, RECT, REPO, S640,
                                               S640_CFG, counted, done,
                                               extval_files, matched, phase,
@@ -134,14 +134,14 @@ def check_match(tag, got, want, gate):
     assert min(fwd, back) >= gate, (tag, fwd, back)
 
 
-def serve_slice(work: Path, model_l, pairs_per_s: float, card: str) -> dict:
+def serve_slice(work: Path, model_l) -> dict:
     """Phase 8: the serving entry points on the card. (a) cli.detect on the
     trained s640 checkpoint over the 141 extval pairs, square and --rect;
     (b) ServingEngine.predict_paths, pipelined and not; (c) the
     MicroBatcher over the flagship at 640 in bf16 (model_l: random weights
-    from seed 0); (d) the HTTP server with a MicroBatcher over s640;
-    (e) ServingEngine.throughput. Returns the launches of the three kernels
-    summed over (a)-(d)."""
+    from seed 0); (d) the HTTP server with a MicroBatcher over s640; (f)
+    cli.detect on videos. Returns the launches of the three kernels summed
+    over (a)-(d)."""
     from icafusion_tpu_torch.cli import detect as cli_detect
     from icafusion_tpu_torch.cli._common import load_model_for_inference
     from icafusion_tpu_torch.data.decode import decode_letterbox_batch
@@ -227,25 +227,6 @@ def serve_slice(work: Path, model_l, pairs_per_s: float, card: str) -> dict:
     t0 = phase(f"8d HTTP server: s640 on {RECT}, bf16, MicroBatcher, "
                f"{HTTP_THREADS} client threads")
     http_slice(s640, files1, files2, add)
-    done(t0)
-
-    t0 = phase("8e ServingEngine.throughput: yolov5l-Transfusion 640, b4, "
-               "bf16 (not gated)")
-    engine = ServingEngine(model_l, 640, BATCH, conf_thres=0.001)
-    rng = np.random.default_rng(3)
-    pair = [rng.integers(0, 256, (BATCH, 640, 640, 3), np.uint8)
-            for _ in range(2)]
-    engine.predict_arrays(*pair)
-    t = time.perf_counter()
-    for _ in range(20):
-        engine.predict_arrays(*pair)
-    arrays_rate = 20 * BATCH / (time.perf_counter() - t)
-    rate = engine.throughput(20)
-    print(f"   throughput() {rate:.1f} pairs/s (host clock, 20 calls on "
-          f"device tensors, one synchronisation); 20 predict_arrays calls "
-          f"just before it {arrays_rate:.1f} pairs/s, phase 4c's "
-          f"{pairs_per_s:.1f}; {card}")
-    del engine
     done(t0)
 
     t0 = phase(f"8f cli.detect on a pair of {VIDEO_FRAMES}-frame MJPG videos, "

@@ -47,6 +47,7 @@ from icafusion_tpu_torch.train.loss import YoloLoss
 from icafusion_tpu_torch.train.optim import YoloAdam, YoloSGD
 from icafusion_tpu_torch.utils.convert import flax_paths
 from icafusion_tpu_torch.utils.general import resolve_device
+from icafusion_tpu_torch.utils.profiling import span
 
 
 def scaled_size(v: int, scale: float) -> int:
@@ -119,10 +120,11 @@ class Trainer:
                 m.generator = self.generator
 
     def _forward_loss(self, rgb, ir, targets, mask):
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.bf16):
+        with span("train.forward"), torch.autocast(
+                self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
             preds = self.model(rgb, ir)
-        return self.loss_fn(preds, targets, mask)
+        with span("train.loss"):
+            return self.loss_fn(preds, targets, mask)
 
     def _all_reduce(self, grads: dict, *metrics):
         """Sum the gradients and the metrics over the process group in one
@@ -151,7 +153,11 @@ class Trainer:
         grad_mask: {parameter name: 0/1 tensor} (utils/stream_merge.
         grad_mask), multiplied into those gradients after the ranks' sum
         and before the optimizer, so that the zero blocks of a
-        stream-merged model stay exactly 0."""
+        stream-merged model stay exactly 0.
+
+        Its stages are ``span``s (utils/profiling.py): ``train.step``
+        around it, ``train.forward``, ``train.loss`` and ``train.backward``
+        a microbatch, then ``train.optimizer`` and ``train.ema``."""
         A = self.accum_steps
         masks = list((grad_mask or {}).items())
         unknown = sorted(k for k, _ in masks if k not in self.params)
@@ -165,28 +171,35 @@ class Trainer:
                                  scaled_size(x.shape[3], scale))
 
         def step(rgb, ir, targets, mask):
-            self.model.train()
-            for p in self.params.values():
-                p.grad = None
-            lr = self.optimizer.schedules(self.opt.step)[0][1]
-            loss_sum = torch.zeros((), device=self.device)
-            items_sum = torch.zeros(4, device=self.device)
-            for mb in zip(*(x.chunk(A) for x in (rgb, ir, targets, mask))):
-                r, i, t, m = mb
-                loss, items = self._forward_loss(resize(r), resize(i), t, m)
-                loss.backward()
-                loss_sum += loss.detach()
-                items_sum += items.detach()
-            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
-                     for k, p in self.params.items()}
-            if world() > 1:
-                self._all_reduce(grads, loss_sum, items_sum)
-            for k, m in masks:
-                grads[k].mul_(m)
-            self.optimizer.update(self.params, grads, self.opt, self.paths)
-            ema_update(self.ema, ema_variables(self.model), self.ema_decay)
-            loss, items = loss_sum / A, items_sum / A
-            return {"loss": loss, "lbox": items[0], "lobj": items[1],
-                    "lcls": items[2], "lr": lr}
+            with span("train.step"):
+                self.model.train()
+                for p in self.params.values():
+                    p.grad = None
+                lr = self.optimizer.schedules(self.opt.step)[0][1]
+                loss_sum = torch.zeros((), device=self.device)
+                items_sum = torch.zeros(4, device=self.device)
+                for r, i, t, m in zip(*(x.chunk(A) for x in
+                                        (rgb, ir, targets, mask))):
+                    loss, items = self._forward_loss(resize(r), resize(i),
+                                                     t, m)
+                    with span("train.backward"):
+                        loss.backward()
+                    loss_sum += loss.detach()
+                    items_sum += items.detach()
+                with span("train.optimizer"):
+                    grads = {k: torch.zeros_like(p) if p.grad is None
+                             else p.grad for k, p in self.params.items()}
+                    if world() > 1:
+                        self._all_reduce(grads, loss_sum, items_sum)
+                    for k, m in masks:
+                        grads[k].mul_(m)
+                    self.optimizer.update(self.params, grads, self.opt,
+                                          self.paths)
+                with span("train.ema"):
+                    ema_update(self.ema, ema_variables(self.model),
+                               self.ema_decay)
+                loss, items = loss_sum / A, items_sum / A
+                return {"loss": loss, "lbox": items[0], "lobj": items[1],
+                        "lcls": items[2], "lr": lr}
 
         return step

@@ -15,13 +15,46 @@ models/yolo_test.py:144-152, the forward's per-layer profile):
   input, captured from one forward;
 - ``start_trace``/``stop_trace`` record a torch.profiler trace and write it
   as Chrome trace JSON under the log directory (TensorBoard's profiler
-  plugin and Perfetto read it).
+  plugin and Perfetto read it);
+- ``span(name)`` marks a stretch of the serving call or the train step as
+  a ``record_function`` range while a torch.profiler records, on the
+  profiler's own clock, so that its trace (and the benchmark's readers,
+  ``portbench/metrics/``) can put the card's device time and idle time
+  down to it. With no profiler recording it is one shared null context.
+
+The spans, where each opens, and the benchmark metric that reads it:
+
+- ``serve.upload``: ``ServingEngine._dispatch``, under the engine's lock,
+  the padding and the upload of the uint8 pairs (``shard_batch``);
+  ``idle_io_ms.offline``.
+- ``serve.forward``: ``ServingEngine._serve``, /255, the cast and the
+  model's forward, per replica; ``idle_forward_ms.offline``.
+- ``serve.nms``: ``ServingEngine._serve``, ``non_max_suppression``, per
+  replica; ``nms_device_ms.offline``.
+- ``serve.fetch``: ``ServingEngine._finalize``, the copy back, the unpad
+  and the rescale; ``idle_io_ms.offline``.
+- ``serve.d2h``: ``ServingEngine._finalize``, each of the four blocking
+  ``.cpu()`` copies of the detections (nested in ``serve.fetch``); read
+  through ``serve.fetch``.
+- ``train.step``: ``Trainer.make_train_step``'s step; the count that the
+  ``*_device_ms.train`` metrics divide by.
+- ``train.forward``: ``Trainer._forward_loss``, the autocast forward, per
+  microbatch; ``forward_device_ms.train``.
+- ``train.loss``: ``Trainer._forward_loss``, the loss, per microbatch;
+  ``forward_device_ms.train``.
+- ``train.backward``: the step's ``loss.backward()``, per microbatch,
+  while autograd's own thread launches the backward;
+  ``backward_device_ms.train``.
+- ``train.optimizer``: the step's gradients, all-reduce, masks and SGD
+  update; ``update_device_ms.train``.
+- ``train.ema``: the step's EMA update; ``update_device_ms.train``.
 
 Nothing here swallows an exception: a layer that fails to run raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from pathlib import Path
@@ -30,6 +63,17 @@ from typing import Optional
 import torch
 
 _TRACE: Optional[tuple] = None          # (profiler, log directory)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a torch.profiler
+    records; otherwise one shared null context, so an unprofiled span costs
+    a check (an unprofiled ``record_function`` costs about a hundred times
+    as much on the host). Use as ``with span("serve.nms"): ...``."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def count_params(params) -> int:

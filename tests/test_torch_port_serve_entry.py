@@ -1,7 +1,7 @@
 """The port's serving entry points against the JAX package, on the CPU:
 merge-NMS, batched_nms and detections_to_records; ServingEngine._dispatch
-at each bucket, predict_paths (pipelined and serial), warmup and
-throughput; decode_letterbox_batch; the MicroBatcher; the HTTP server,
+at each bucket, predict_paths (pipelined and serial), warmup;
+decode_letterbox_batch; the MicroBatcher; the HTTP server,
 batched and not; the hub; stream merging in the engine and the server.
 Model weights are one flax variable tree carried
 across with load_jax_variables; the JAX engine gets the port's letterboxed
@@ -238,12 +238,11 @@ def merged_jax():
 
 
 def test_warmup_throughput_and_unported_options(engines, merged_jax):
-    """warmup, throughput; merge_streams 0 and "auto" serve unmerged (auto
+    """warmup; merge_streams 0 and "auto" serve unmerged (auto
     is 0 in the port), and merge_streams=2 (refused before stream merging
     was ported) serves the merged graph as the JAX engine at 2 does."""
     engine, _ = engines
     engine.warmup()
-    assert engine.throughput(iters=2) > 0
     model = build_model(zoo.tiny_icafusion_config())
     for merge in (0, "auto"):
         assert ServingEngine(model, 64, 1, device="cpu",
@@ -298,6 +297,28 @@ def test_concurrent_submits_match_jax_and_coalesce(engines):
     assert sum(stats["bucket_counts"].values()) == stats["batches"]
     assert sum(len(g) for g in got) > 0
     assert_dets_close(got, want)
+
+
+def test_concurrent_predict_arrays_equal_serial_calls(engines):
+    """Eight threads calling predict_arrays at once, with no batcher (the
+    HTTP server's direct path), batches of 1 to 4 pairs: each gets the
+    detections of the same call made alone."""
+    engine, _ = engines
+    reqs = [_pairs(1 + i % 4, seed=40 + i) for i in range(8)]
+    want = [engine.predict_arrays(*r) for r in reqs]
+    barrier = threading.Barrier(8)
+
+    def call(r):
+        barrier.wait(timeout=60)
+        return engine.predict_arrays(*r)
+
+    with ThreadPoolExecutor(8) as ex:
+        got = list(ex.map(call, reqs))
+    assert sum(len(d) for g in got for d in g) > 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_orig_hw_rescale_matches_jax(engines):
