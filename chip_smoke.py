@@ -36,13 +36,22 @@ exit code is non-zero and the final line is never printed:
    nhwc, nchw_tma or nchw_ld), each NCHW row printed beside the first
    design's time (smoke/common.FIRST_DESIGN_NCHW_MS) and cuDNN's NCHW
    call;
+3c. the BatchNorm + activation epilogue (kernels/bn_act.py) in place
+   against its plain version, float32 and bfloat16, both layouts, SiLU
+   and identity, its vector modes and the per-element mode with its
+   scalar tail (odd W, 5 and 3 channels);
 4. the slice: (a) a tiny model served on the card against the same engine
    on the CPU; (b) ServingEngine on yolov5l-Transfusion at 640, batch 4,
    bfloat16, random weights from torch.Generator().manual_seed(0), three
    requests (full, ragged 3, full) with every kernel launch counted (six
-   fused convs per forward);
+   fused convs and 159 epilogues per forward);
    (c) steady throughput and device time by kernel (torch.profiler);
    (d) detection agreement of the bf16 and fp32 engines, printed only;
+   (e) the epilogue at the 159 shapes of (b)'s forward at batch 32,
+   bf16: against its plain version, then kernel (each map read from HBM),
+   bound, plain version and F.batch_norm + F.silu, and the host's cost a
+   call beside F.silu's; the int8 engine of 11b launches it 3 times a
+   forward (Detect's feeders), training (6b) never;
 5. the trained yolov5n-Transfusion checkpoint (artifacts/trained_n320, read
    by the port's own reader) through the port's Evaluator on its 77 val
    pairs at 320, float32 and bfloat16: mAP@50 within 0.3 points of the
@@ -106,7 +115,8 @@ exit code is non-zero and the final line is never printed:
    each checked and timed the same way;
    (b) the flagship engine (phase 4b's weights) quantized by
    ServingEngine.quantize on two seeded batches, three counted requests
-   (162 int8 launches a forward, 3 attention, 1 NMS, 0 fused convs),
+   (162 int8 launches a forward, 3 attention, 1 NMS, 0 fused convs, 3
+   BatchNorm epilogues),
    every int8 conv of a forward held to the plain version on its own
    input, each class's input layout and path (the two stems on the stem
    path, every other conv on the tma path from a channels_last map, none
@@ -284,6 +294,8 @@ def main(argv=None) -> int:
     from icafusion_tpu_torch.smoke.reference import reference_slice
     from icafusion_tpu_torch.smoke.export import export_slice
     from icafusion_tpu_torch.smoke.merge import merge_slice
+    from icafusion_tpu_torch.kernels.bn_act import bn_act_
+    from icafusion_tpu_torch.smoke import bn_act as smoke_bn_act
 
     t_all = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -515,6 +527,10 @@ def main(argv=None) -> int:
                 "bound_by": {tf32_by}}
     done(t0)
 
+    t0 = phase("3c BatchNorm + activation epilogue vs plain, in place")
+    bn_act_err = smoke_bn_act.check_slice(gen)
+    done(t0)
+
     # the fp32 kernels' launches on the entry points' paths (phases 4-15)
     dual_cross_attention.tf32_launches = 0
     conv3x3_bn_silu.tf32_launches = 0
@@ -557,6 +573,7 @@ def main(argv=None) -> int:
     dual_cross_attention.launches = 0
     greedy_nms.launches = 0
     conv3x3_bn_silu.launches = 0
+    bn_act_.launches = 0
     results, req_ms = [], []
     for rgb, ir in pairs:
         t = time.perf_counter()
@@ -565,9 +582,11 @@ def main(argv=None) -> int:
     launches = {"dual_cross_attention": dual_cross_attention.launches,
                 "greedy_nms": greedy_nms.launches,
                 "conv3x3_bn_silu": conv3x3_bn_silu.launches}
+    bn_launches = bn_act_.launches
     print(f"   {n_params / 1e6:.1f} M parameters; launches {launches}; "
           f"fused convs per forward "
-          f"{launches['conv3x3_bn_silu'] / len(pairs):g}")
+          f"{launches['conv3x3_bn_silu'] / len(pairs):g}; epilogues "
+          f"(bn_act_) per forward {bn_launches / len(pairs):g}")
     for (rgb, _), out, ms in zip(pairs, results, req_ms):
         print(f"   request of {len(rgb)}: {ms:.1f} ms, "
               f"{1e3 * len(rgb) / ms:.1f} pairs/s, detections per image "
@@ -580,6 +599,9 @@ def main(argv=None) -> int:
     assert launches["greedy_nms"] == len(pairs), launches
     assert (launches["conv3x3_bn_silu"]
             == CONVS_PER_FORWARD * len(pairs)), launches
+    assert bn_launches == smoke_bn_act.EPILOGUES_PER_FORWARD * len(pairs)
+    epilogue_shapes = smoke_bn_act.forward_shapes(engine, pairs[0])
+    assert len(epilogue_shapes) == smoke_bn_act.EPILOGUES_PER_FORWARD
     done(t0)
 
     t0 = phase("4c slice throughput and device time (yolov5l 640, b4, bf16)")
@@ -611,6 +633,12 @@ def main(argv=None) -> int:
     agree = [round(matched(a, r), 4) for a, r in zip(results[0], ref)]
     print(f"   bf16 vs fp32 engine (not gated): share of bf16 detections "
           f"with an fp32 detection of the same class at IoU > 0.5: {agree}")
+    done(t0)
+
+    t0 = phase("4e BatchNorm + activation epilogue at a served forward's "
+               "shapes (b32, bf16)")
+    report["bn_act_"] = smoke_bn_act.timing_slice(epilogue_shapes, 32, gen,
+                                                  bn_act_err)
     done(t0)
 
     t0 = phase("5 trained yolov5n-Transfusion (n320): Evaluator, 77 val pairs")
@@ -663,7 +691,9 @@ def main(argv=None) -> int:
     data_yaml = make_dataset(Path(tmp) / "data", 48,
                              np.random.default_rng(0), hw=(512, 640))
     t0 = phase("6b slice: training yolov5l-Transfusion 640, b8, bf16, SGD")
+    n0 = bn_act_.launches
     train_slice(data_yaml, card)
+    assert bn_act_.launches == n0, "training launched the epilogue"
     done(t0)
     t0 = phase("6c fit: yolov5n-Transfusion 320, 2 epochs, b16, bf16")
     fit_rows = fit_slice(data_yaml, Path(tmp) / "runs")
@@ -694,6 +724,7 @@ def main(argv=None) -> int:
      int8) = int8_slice(card, s640_fp32_map50)
     for k in ("conv_int8_bn_act", *INT8_PATH_KEYS.values()):
         launches[k] = int8[k]
+    bn_launches += int8["bn_act_"]
 
     par = parallel_slice(card, data_yaml, runs, fit_rows, n320, val, p5)
     launches = {k: v + par.get(k, 0) for k, v in launches.items()}
@@ -708,6 +739,7 @@ def main(argv=None) -> int:
                                                                  Path(tmp))
     launches = {k: v + exp.get(k, 0) for k, v in launches.items()}
     launches[NCHW_KEY] = exp[NCHW_KEY]   # 14a/b, 14d, 14e and 14g
+    launches["bn_act_"] = bn_launches
     assert launches[NCHW_KEY] > 0, launches
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -742,7 +774,11 @@ def main(argv=None) -> int:
             # its grouped path (feature_group_count there)
             ("conv_int8_bn_act (grouped)",
              "icafusion_tpu_torch/csrc/conv_int8_small.cu",
-             "icafusion_tpu/nn/layers.py:175")):
+             "icafusion_tpu/nn/layers.py:175"),
+            # no Pallas kernel: XLA fused the BatchNorm and SiLU into the
+            # conv (Conv.__call__); phases 4b and 4e count it
+            ("bn_act_", "icafusion_tpu_torch/csrc/bn_act_epilogue.cu",
+             "icafusion_tpu/nn/layers.py:147")):
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dual_cross_attention.cu", "greedy_nms.cu", "conv3x3_bn_silu.cu",
-           "conv_int8.cu", "conv_int8_small.cu")
+           "conv_int8.cu", "conv_int8_small.cu", "bn_act_epilogue.cu")
 HEADERS = ("hopper.cuh", "conv_int8.cuh")   # included by the sources: part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -72,6 +72,9 @@ SIGNATURES = {
     # groups a block, the shared memory a block; stream
     "icaf_conv_int8_grouped": (_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P,
                                _P, ctypes.c_float, _P, *(_I,) * 21, _P),
+    # y (in place), scale, bias, numel, C, H * W, flags (bf16, channels_last,
+    # SiLU), stream
+    "icaf_bn_act": (_P, _P, _P, _L, _L, _L, _I, _P),
 }
 
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from icafusion_tpu_torch.kernels import ops  # noqa: F401  (icafusion::*)
+from icafusion_tpu_torch.kernels.bn_act import bn_act_
 from icafusion_tpu_torch.kernels.conv_int8 import conv_int8_bn_act
 from icafusion_tpu_torch.kernels.packed_conv import conv3x3_bn_silu
 from icafusion_tpu_torch.parallel.mesh import all_reduce_sum, world
@@ -90,13 +91,52 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+def bn_affine(bn: nn.BatchNorm2d):
+    """The eval BatchNorm as a float32 per-channel (scale, bias)."""
+    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return scale, bn.bias.float() - bn.running_mean.float() * scale
+
+
+class _Folded:
+    """The activation child of a Conv whose BatchNorm ops/fuse.py:
+    fold_bn_act has folded: it keeps the float32 (scale, bias) as
+    non-persistent buffers (the state_dict is unchanged) and, in eval mode,
+    applies the affine and its activation in one in-place pass over the
+    conv's output (kernels/bn_act.py). In train mode it is its plain
+    activation, after the Conv's BatchNorm."""
+
+    silu = False
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("scale", scale, persistent=False)
+        self.register_buffer("bias", bias, persistent=False)
+
+    def forward(self, y):
+        if self.training:
+            return super().forward(y)
+        return bn_act_(y, self.scale, self.bias, self.silu)
+
+
+class FoldedSiLU(_Folded, nn.SiLU):
+    silu = True
+
+
+class FoldedIdentity(_Folded, nn.Identity):
+    pass
+
+
 class Conv(nn.Module):
     """Conv2d(bias=False) + BatchNorm + SiLU (reference common.py:48-60).
 
     In eval mode a 3x3, stride 1, pad 1, ungrouped 64 -> 64 Conv with SiLU
     runs as one fused kernel (kernels/packed_conv.py: conv3x3_bn_silu) with
     the BatchNorm folded into a per-channel scale and bias; on the CPU that
-    call takes its plain version.
+    call takes its plain version. Where ops/fuse.py: fold_bn_act has given
+    the Conv a folded activation (``FoldedSiLU``, ``FoldedIdentity``: the
+    serving engine's models), that scale and bias are its buffers, and
+    every other float Conv runs its conv and then the activation child,
+    which applies the affine and the activation in place.
 
     int8 W8A8 (utils/quantize.py, the JAX package's Conv._int8_conv): once
     ``quantize_model`` has filled the buffers ``w8`` (Cout, kh, kw, Cin)
@@ -141,12 +181,14 @@ class Conv(nn.Module):
             a = x.detach().abs().amax(dim=(0, 2, 3)).float()
             self.absmax = a if self.absmax is None else torch.maximum(
                 self.absmax, a)
-        if self.fused and not self.training:
-            bn = self.bn
-            scale = bn.weight.float() * torch.rsqrt(bn.running_var.float()
-                                                    + bn.eps)
-            bias = bn.bias.float() - bn.running_mean.float() * scale
-            return conv3x3_bn_silu(x, self.conv.weight, scale, bias)
+        if not self.training:
+            folded = isinstance(self.act, _Folded)
+            if self.fused:
+                scale, bias = ((self.act.scale, self.act.bias) if folded
+                               else bn_affine(self.bn))
+                return conv3x3_bn_silu(x, self.conv.weight, scale, bias)
+            if folded:
+                return self.act(self.conv(x))
         return self.act(self.bn(self.conv(x)))
 
 

@@ -36,6 +36,7 @@ import torch
 
 from icafusion_tpu_torch.models.assembler import ICAFusionModel
 from icafusion_tpu_torch.ops.boxes import scale_coords_np
+from icafusion_tpu_torch.ops.fuse import fold_bn_act
 from icafusion_tpu_torch.ops.nms import (Detections, detections_to_numpy,
                                          non_max_suppression)
 from icafusion_tpu_torch.parallel.mesh import (Mesh, device_count,
@@ -49,7 +50,9 @@ TOP_K = 1024   # candidates entering NMS, as the JAX engine serves
 
 class ServingEngine:
     """Serve ``model`` (an ICAFusionModel with its weights; the engine keeps
-    its own copy, cast to ``dtype`` and moved to ``device``).
+    its own copy, cast to ``dtype``, moved to ``device`` and with each
+    float Conv's BatchNorm folded into one pass after its conv, at
+    placement: ops/fuse.py, fold_bn_act).
 
     img_size: a square side or an (H, W) rect canvas. device=None means
     CUDA and raises where there is none; the CPU must be asked for.
@@ -65,7 +68,9 @@ class ServingEngine:
     does, so a batch always divides over them; a device named by its index
     (``cuda:1``) serves alone unless n_devices says otherwise. Each batch,
     and each bucket, must divide over the replicas. ``model`` is the first
-    replica.
+    replica. Its folded (scale, bias) follow a state_dict it loads; a
+    BatchNorm changed any other way is served as folded until
+    ``fold_bn_act`` runs on each of ``replicas`` again.
 
     The engine may be called from several threads: a lock lets one of them
     launch the device work of a batch, on every replica, at a time. It
@@ -99,8 +104,10 @@ class ServingEngine:
         self._lock = threading.Lock()
 
     def _place(self, model: ICAFusionModel):
-        """Serve from ``model``: one copy on each mesh device."""
-        self.replicas = replicate(model, self.mesh)
+        """Serve from ``model``: one copy on each mesh device, each with its
+        BatchNorms folded into their Convs' activations (ops/fuse.py:
+        fold_bn_act; the int8 Convs keep theirs)."""
+        self.replicas = [fold_bn_act(r) for r in replicate(model, self.mesh)]
         self.model = self.replicas[0]
 
     @torch.inference_mode()

@@ -346,6 +346,7 @@ def int8_serving_slice(card: str):
     modules), every int8 conv of a forward against its plain version, and
     device busy and idle share beside the bf16 engine's. Returns (the
     kernels line's entry, the counted launches)."""
+    from icafusion_tpu_torch.kernels.bn_act import bn_act_
     from icafusion_tpu_torch.models.assembler import build_model
     from icafusion_tpu_torch.models.zoo import icafusion_config
     from icafusion_tpu_torch.nn.layers import Conv
@@ -374,12 +375,16 @@ def int8_serving_slice(card: str):
     engine = engines["int8"]
     engine.predict_arrays(*pairs[0])                  # warm-up
     torch.cuda.synchronize()
+    n0 = bn_act_.launches
     results, launches = counted(
         lambda: [engine.predict_arrays(*p) for p in pairs], int8=True)
+    # the float Convs, Detect's feeders, take the BatchNorm epilogue
+    launches["bn_act_"] = bn_act_.launches - n0
     want = {"dual_cross_attention": 3 * len(pairs), "greedy_nms": len(pairs),
             "conv3x3_bn_silu": 0, "conv_int8_bn_act": n_int8 * len(pairs),
             "conv_int8_bn_act (stem)": 2 * len(pairs),
-            "conv_int8_bn_act (grouped)": 0}
+            "conv_int8_bn_act (grouped)": 0,
+            "bn_act_": len(skip) * len(pairs)}
     assert launches == want, (launches, want)
     for (rgb, _), out in zip(pairs, results):
         assert len(out) == len(rgb)

@@ -590,7 +590,9 @@ def fp64(cfg_name: str, imgsz: int, scales) -> dict:
         engines = {dev: ServingEngine(model, imgsz, 1, conf_thres=0.001,
                                       dtype="float32", device=dev)
                    for dev in ("cuda", "cpu")}
-        m64 = copy.deepcopy(engines["cpu"].model).double()
+        # from the caller's model: the engine's own has its BatchNorms
+        # folded into float32 (scale, bias)
+        m64 = copy.deepcopy(engines["cpu"]._float_model).double()
         del model
         preds = {}
         with torch.inference_mode():
