@@ -1,9 +1,12 @@
 """BENCHMARK.json and the files it names, found by name: a cell's
 workload file ``portbench/workloads/<cell>.json``, its configuration
 ``portbench/configs/<config>.json``, its traffic driver
-``portbench/traffic/<kind>.py`` and each per-layer metric's reader
-``portbench/metrics/<metric>.py``. Adding a cell, a configuration or a
-metric adds files and entries; nothing here changes.
+``portbench/traffic/<kind>.py``, each per-layer metric's reader
+``portbench/metrics/<metric>.py`` and each module of a configuration that
+the plain reference does not build itself
+``portbench/reference/modules/<Module>.py``. Adding a cell, a
+configuration, a module or a metric adds files and entries; nothing here
+changes.
 """
 
 from __future__ import annotations
@@ -45,6 +48,11 @@ def _module(path: Path, key: str) -> ModuleType:
     return mod
 
 
+def modules_dir(root: Path = ROOT) -> Path:
+    """Where the plain reference finds the module files of a checkout."""
+    return root / "portbench" / "reference" / "modules"
+
+
 def driver(kind: str, root: Path = ROOT) -> ModuleType:
     return _module(root / "portbench" / "traffic" / f"{kind}.py",
                    f"portbench_traffic_{kind}")
@@ -62,6 +70,19 @@ def metrics_for(bench: dict, cell: str, trace: bool) -> List[dict]:
     key = "per_layer" if trace else "end_to_end"
     return [m for m in bench[key]
             if "workloads" not in m or cell in m["workloads"]]
+
+
+def unmodelled(name: str, cfg: dict, root: Path = ROOT) -> List[str]:
+    """The rows of configuration ``name`` whose module the plain reference
+    can build neither itself nor from a module file under ``root``."""
+    from portbench.reference import model as refm
+    model = cfg.get("model", {})
+    rows = list(model.get("backbone", [])) + list(model.get("head", []))
+    with refm.modules_from(modules_dir(root)):
+        return [f"config {name}: row {i}: module {r[2]} is neither built "
+                f"into reference/model.py nor in reference/modules/"
+                f"{r[2]}.py" for i, r in enumerate(rows)
+                if not refm.modelled(r[2])]
 
 
 def validate(bench: dict, root: Path = ROOT) -> List[str]:
@@ -92,6 +113,8 @@ def validate(bench: dict, root: Path = ROOT) -> List[str]:
         if not f.is_file() or not c["file"].startswith(tuple(
                 p + "/" for p in bench["paths"])):
             errs.append(f"config file {c['file']} missing or outside paths")
+        else:
+            errs += unmodelled(c["name"], json.loads(f.read_text()), root)
     for w in bench["workloads"]:
         name_ok(w["name"], "workload")
         name_ok(w["traffic"], "traffic")

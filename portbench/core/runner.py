@@ -67,7 +67,15 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
         plant: Optional[Callable[[Any], None]] = None) -> dict:
     """The result line of one run as a dict. ``control`` serves the
     control in the program's place (tools/readings.py); ``plant`` is given
-    the driver's state after set-up (the fault tests break it there)."""
+    the driver's state after set-up (the fault tests break it there). The
+    plain reference finds its module files under ``root``."""
+    from portbench.reference import model as refm
+    with refm.modules_from(B.modules_dir(root)):
+        return _run(cell, seed, seconds, trace, device, t_start, root,
+                    control, plant)
+
+
+def _run(cell, seed, seconds, trace, device, t_start, root, control, plant):
     import torch
     from torch.autograd.profiler import record_function
 

@@ -8,7 +8,8 @@ time, over the window."""
 from portbench.core.yardstick import PEAK_OPS
 
 
-def least_s_per_pair(config):
+def pair_flops(config):
+    """(all operations, those of the W8A8 convs) of one pair's forward."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from portbench.reference import model as refm
@@ -27,6 +28,11 @@ def least_s_per_pair(config):
         for name, _ in refm.conv_modules(m):
             if not any(name == s or name.startswith(s + ".") for s in skip):
                 int8 += sum(counts.get(f"Model.{name}.conv", {}).values())
+    return total, int8
+
+
+def least_s_per_pair(config):
+    total, int8 = pair_flops(config)
     return (total - int8) / PEAK_OPS["bf16"] + int8 / PEAK_OPS["int8"]
 
 

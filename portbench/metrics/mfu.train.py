@@ -10,7 +10,9 @@ over the window."""
 from portbench.core.yardstick import PEAK_OPS
 
 
-def least_s_per_image(config):
+def image_flops(config):
+    """(all operations, the attention's fp32 products) of one image's
+    forward and backward."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from portbench.reference import model as refm
@@ -28,6 +30,11 @@ def least_s_per_image(config):
     for name, ops in counts.items():
         if name.endswith(".crossatt"):
             fp32 += sum(v for op, v in ops.items() if "bmm" in str(op))
+    return total, fp32
+
+
+def least_s_per_image(config):
+    total, fp32 = image_flops(config)
     if config["precision"] != "bf16":
         return total / PEAK_OPS["fp32"]
     return (total - fp32) / PEAK_OPS["bf16"] + fp32 / PEAK_OPS["fp32"]

@@ -27,12 +27,26 @@ in float32. q = 127 is int8; q = 7 the int4 control.
 and weights of every conv and linear product before it, with the gradient
 passed straight through: the control of a training cell (fp8).
 
-This file imports torch and numpy alone.
+A module that ``parse`` does not build itself (ResNet or VGG towers,
+another fusion) comes from a file of its own, ``reference/modules/
+<Module>.py``, found by the module's name. The file defines a plain-torch
+``nn.Module`` class named ``<Module>`` and ``row(c_in, args, n, gw)``,
+which gives the row's output channels, its constructor arguments and its
+repeats from the input channels of each ``from`` entry, the YAML args, the
+depth-scaled ``n`` and the width multiple. Its convs and linears go
+through ``conv2d`` and ``linear`` below, so that ``fake_quant`` reaches
+them. W8A8 (``quantize``) models the built-in ``Conv`` alone.
+
+This file imports torch, numpy and the standard library alone.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
 import math
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -388,11 +402,46 @@ def make_divisible(x, d=8):
     return int(math.ceil(x / d) * d)
 
 
+# where module files are looked for: beside this file, or in the checkout
+# that modules_from names
+_modules_dir = [Path(__file__).resolve().parent / "modules"]
+_loaded: Dict[Path, ModuleType] = {}
+
+
+@contextlib.contextmanager
+def modules_from(path: Path):
+    """Look for module files under ``path`` while the block runs (a copy
+    of the benchmark at another root), then where they were looked for
+    before."""
+    saved, _modules_dir[0] = _modules_dir[0], Path(path)
+    try:
+        yield
+    finally:
+        _modules_dir[0] = saved
+
+
+def module_file(m: str) -> Optional[ModuleType]:
+    """The loaded ``<Module>.py`` of module ``m``, or None where there is
+    no such file."""
+    path = _modules_dir[0] / f"{m}.py"
+    if not m.isidentifier() or not path.is_file():
+        return None
+    if path not in _loaded:
+        spec = importlib.util.spec_from_file_location(
+            f"portbench_reference_module_{m}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _loaded[path] = mod
+    return _loaded[path]
+
+
 def parse(cfg: dict):
     """The layer rows of a model dict (YAML keys: nc, depth_multiple,
     width_multiple, anchors, backbone, head) -> [(i, from, module name,
     constructor args, repeats)], channels inferred as parse_model does.
-    Rows are [from, n, module, args]; from -4 reads the IR image."""
+    Rows are [from, n, module, args]; from -4 reads the IR image. A module
+    not built here is found by name in a module file (see the module
+    docstring); one with neither raises ValueError."""
     nc, gd, gw = int(cfg["nc"]), cfg["depth_multiple"], cfg["width_multiple"]
     anchors = cfg["anchors"]
     no = (len(anchors[0]) // 2) * (nc + 5)
@@ -427,7 +476,13 @@ def parse(cfg: dict):
         elif m == "Detect":
             c2, a = -1, [nc, anchors, [src(x) for x in f]]
         else:
-            raise ValueError(f"module {m} is not modelled by the reference")
+            mod = module_file(m)
+            if mod is None:
+                raise ValueError(
+                    f"row {i}: module {m} is not modelled by the reference:"
+                    f" it needs {_modules_dir[0] / (m + '.py')}")
+            c2, a, reps = mod.row([src(x) for x in (
+                f if isinstance(f, tuple) else (f,))], list(args), n, gw)
         out.append((i, f, m, a, reps))
         if i == 0:
             ch = []
@@ -440,12 +495,27 @@ _BUILD = {"Conv": Conv, "C3": C3, "SPPF": SPPF, "Concat": Concat,
           TransformerFusionBlock, "Detect": Detect}
 
 
+def modelled(m: str) -> bool:
+    """Whether the reference builds module ``m``: a built-in one, or a
+    module file with its class and its ``row``."""
+    if m in _BUILD:
+        return True
+    mod = module_file(m)
+    return mod is not None and hasattr(mod, "row") and hasattr(mod, m)
+
+
+def build(m: str, args) -> nn.Module:
+    """Module ``m``: a built-in one, or the class of its module file."""
+    cls = _BUILD[m] if m in _BUILD else getattr(module_file(m), m)
+    return cls(*args)
+
+
 class Repeat(nn.Module):
     def __init__(self, m, args, n):
         super().__init__()
         self.n = n
         for j in range(n):
-            self.add_module(f"r{j}", _BUILD[m](*args))
+            self.add_module(f"r{j}", build(m, args))
 
     def forward(self, x):
         for j in range(self.n):
@@ -465,7 +535,7 @@ class Model(nn.Module):
                      if x not in (-1, -4)}
         for i, f, m, a, reps in self.rows:
             self.add_module(f"m{i}", Repeat(m, a, reps) if reps > 1
-                            else _BUILD[m](*a))
+                            else build(m, a))
         self.eval()
 
     def forward(self, rgb, ir):

@@ -158,12 +158,15 @@ def yolo_loss(maps: Sequence[torch.Tensor], targets, mask, anchors_grid,
 
 def param_group(name: str) -> int:
     """0: BatchNorm scales, positional embeddings, pooling blends (no
-    decay); 2: biases and residual gains; 1: the rest (decay)."""
-    last = name.rsplit(".", 1)[-1]
+    decay); 2: biases and residual gains; 1: the rest (decay). A BatchNorm
+    is a module whose name holds ``bn`` (``bn``, ``bn1``, ``stem_bn``); no
+    LayerNorm's does."""
+    parts = name.split(".")
+    last = parts[-1]
     if last == "bias" or last == "coefficients":
         return 2
-    if name.endswith(".bn.weight") or last in ("pos_emb_vis", "pos_emb_ir",
-                                                "w1", "w2"):
+    if (last == "weight" and len(parts) > 1 and "bn" in parts[-2]) or \
+            last in ("pos_emb_vis", "pos_emb_ir", "w1", "w2"):
         return 0
     return 1
 

@@ -105,12 +105,29 @@ def test_four_chip_cells_at_most_a_quarter():
     ("end_to_end", 0, "unit", "pairs per s"),
     ("per_layer", 0, "moves", "nothing"),
     ("per_layer", 0, "source", "guess"),
+    ("model", 0, 18, "NoSuchFusion"),
 ])
-def test_validate_catches(bad):
+def test_validate_catches(bad, tmp_path):
     group, i, key, value = bad
     b = json.loads(json.dumps(BENCH))
-    b[group][i][key] = value
-    assert B.validate(b)
+    if group != "model":
+        b[group][i][key] = value
+        assert B.validate(b)
+        return
+    # row ``key`` of configuration ``i`` names a module with no builder and
+    # no module file, in a copy of the benchmark
+    root = tmp_path / "copy"
+    shutil.copytree(B.PB, root / "portbench", ignore=shutil.ignore_patterns(
+        "__pycache__", "tests"))
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    entry = b["configs"][i]
+    cfg = json.loads((root / entry["file"]).read_text())
+    rows = cfg["model"]["backbone"] + cfg["model"]["head"]
+    rows[key][2] = value
+    (root / entry["file"]).write_text(json.dumps(cfg))
+    assert B.validate(b, root) == [
+        f"config {entry['name']}: row {key}: module {value} is neither built"
+        f" into reference/model.py nor in reference/modules/{value}.py"]
 
 
 DUMMY = '''"""calls_seen.offline: predict_arrays calls in the traced window."""
@@ -143,4 +160,85 @@ def test_a_metric_is_added_by_new_files_alone(tmp_path):
     assert all(p.read_bytes() == data for p, data in before.items())
     res = runner.run(cell, 5, 2.0, True, device="cpu", root=root)
     assert res["metrics"]["calls_seen.offline"]["value"] >= 1
+    shutil.rmtree(root)
+
+
+ADD_MODULE = '''"""Add: w * x0 + (1 - w) * x1 over the two streams, w = 0.5 (ICAFusion's
+models/common.py). The YAML argument, a channel count, goes unused."""
+
+from torch import nn
+
+
+def row(c_in, args, n, gw):
+    return c_in[0], [], 1
+
+
+class Add(nn.Module):
+    weight = 0.5
+
+    def forward(self, xs):
+        return xs[0] * self.weight + xs[1] * (1.0 - self.weight)
+'''
+
+
+def test_a_configuration_is_added_by_new_files_alone(tmp_path):
+    """A copy of the benchmark gains a configuration whose three fusion
+    rows are Add, a module the reference does not build itself: a module
+    file, the configuration, a workload file and entries in
+    BENCHMARK.json, no existing file under portbench/ edited. The
+    reference's forward equals the measured package's on one seeded state
+    dict, a short offline run is correct, and mfu.offline counts it."""
+    import torch
+    from icafusion_tpu_torch.config import load_model_config
+    from icafusion_tpu_torch.models.assembler import ICAFusionModel
+    from portbench.core import runner
+    from portbench.core.serving import Inputs, reference_model, to_nchw
+    from portbench.reference import model as refm
+    from portbench.tests.tiny import MODEL, tiny_root
+    root = tiny_root(tmp_path)
+    pb = root / "portbench"
+    before = {p: p.read_bytes() for p in pb.rglob("*") if p.is_file()}
+    (pb / "reference" / "modules").mkdir(parents=True)
+    (pb / "reference" / "modules" / "Add.py").write_text(ADD_MODULE)
+    base = "yolov5l-tfb-640-bf16"
+    name, cell = "tiny-add-64-bf16", "tiny-add-64-bf16.offline-b32"
+    model = dict(MODEL, backbone=MODEL["backbone"][:18] + [
+        [[4, 13], 1, "Add", [1]], [[6, 15], 1, "Add", [1]],
+        [[8, 17], 1, "Add", [1]]])
+    cfg = dict(B.config(base, root), name=name, model=model)
+    (pb / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    spec = dict(B.workload(f"{base}.offline-b32", root), config=name)
+    (pb / "workloads" / f"{cell}.json").write_text(json.dumps(spec))
+    bench = B.load(root)
+    entry = next(c for c in bench["configs"] if c["name"] == base)
+    bench["configs"].append(dict(entry, name=name,
+                                 file=f"portbench/configs/{name}.json"))
+    bench["workloads"].append({"name": cell, "config": name,
+                               "traffic": "offline-b32", "chips": 1,
+                               "why": spec["why"]})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("pairs_per_s", "mfu.offline"):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert B.validate(bench, root) == []
+    assert all(p.read_bytes() == data for p, data in before.items())
+
+    with refm.modules_from(B.modules_dir(root)):
+        inp = Inputs(cfg, 2 ** 31 + 11, 8, "cpu")
+        ref = reference_model(cfg, inp.state, "cpu")
+        assert B.reader("mfu.offline", root).least_s_per_pair(cfg) > 0
+    port = ICAFusionModel(load_model_config(model))
+    port.load_state_dict(inp.state, strict=True)
+    x, y = to_nchw(inp.rgb, "cpu"), to_nchw(inp.ir, "cpu")
+    with torch.no_grad():
+        pr, logits = ref(x, y)
+        pp, _, maps = port(x, y, raw=True, logits=True)
+    assert (pr - pp).abs().max() <= 1e-4 * pr.abs().max()
+    for lv, m in zip(logits, maps):
+        b, na, no = m.shape[0], m.shape[3], m.shape[4]
+        ours = lv.view(b, na, no, *lv.shape[2:]).permute(0, 3, 4, 1, 2)
+        assert torch.allclose(ours, m, rtol=1e-4, atol=1e-4)
+
+    res = runner.run(cell, 2 ** 31 + 12, 2.0, False, device="cpu", root=root)
+    assert res["correct"], res["checks"]
     shutil.rmtree(root)

@@ -134,6 +134,66 @@ def test_the_sgd_groups_equal_the_package(pair):
                          for n in names)
 
 
+def test_the_sgd_groups_equal_the_package_on_resnet_names():
+    """BatchNorms named other than ``bn`` (a ResNet tower's ``bn1``,
+    ``stem_bn``, ``shortcut_bn``) are BatchNorms to the reference's groups
+    too."""
+    from icafusion_tpu_torch.models.assembler import ICAFusionModel
+    from icafusion_tpu_torch.models.zoo import resnet50_icafusion_config
+    from icafusion_tpu_torch.train.optim import param_group
+    from icafusion_tpu_torch.utils.convert import flax_paths
+    from portbench.reference.train import param_group as ref_group
+    with torch.device("meta"):
+        port = ICAFusionModel(resnet50_icafusion_config())
+    paths = {k: p for k, (c, p) in flax_paths(port).items() if c == "params"}
+    names = [n for n, _ in port.named_parameters()]
+    assert any(n.endswith(".stem_bn.weight") for n in names)
+    assert all(ref_group(n) == param_group(paths[n]) for n in names)
+
+
+# The flagship's reference as the benchmark's first cells were measured on
+# it: its state dict (entries, elements, and the sha256 of its
+# "key:shape:dtype" lines in order, which fix make_weights' draws from a
+# seed) and the operations mfu.offline and mfu.train count on it at 640.
+FLAGSHIP = "yolov5l-tfb-640-bf16"
+FLAGSHIP_STATE = (1107, 109330705, "595199fbecff06e35f6d4f0e7838ba48e5394d6f"
+                  "4d339dc99fcd940db898a8e5")
+PAIR_FLOPS = {"yolov5l-tfb-640-bf16": (192518094848, 0),
+              "yolov5l-tfb-640-int8": (192518094848, 179411353600)}
+LEAST_S_PER_PAIR = {"yolov5l-tfb-640-bf16": 0.00019465934767239637,
+                    "yolov5l-tfb-640-int8": 0.00010391010036127162}
+IMAGE_FLOPS = (573937680384, 2034106368)
+LEAST_S_PER_IMAGE = 0.0006086242798699727
+
+
+def test_the_flagship_state_dict_is_pinned():
+    import hashlib
+    from portbench.core import bench as B
+    with torch.device("meta"):
+        sd = refm.Model(B.config(FLAGSHIP)["model"]).state_dict()
+    lines = "\n".join(f"{k}:{tuple(v.shape)}:{v.dtype}"
+                      for k, v in sd.items())
+    assert (len(sd), sum(v.numel() for v in sd.values()),
+            hashlib.sha256(lines.encode()).hexdigest()) == FLAGSHIP_STATE
+
+
+@pytest.mark.parametrize("name", sorted(PAIR_FLOPS))
+def test_the_flagship_pair_flops_are_pinned(name):
+    from portbench.core import bench as B
+    mfu = B.reader("mfu.offline")
+    cfg = B.config(name)
+    assert mfu.pair_flops(cfg) == PAIR_FLOPS[name]
+    assert mfu.least_s_per_pair(cfg) == LEAST_S_PER_PAIR[name]
+
+
+def test_the_flagship_train_flops_are_pinned():
+    from portbench.core import bench as B
+    mfu = B.reader("mfu.train")
+    cfg = B.config(FLAGSHIP)
+    assert mfu.image_flops(cfg) == IMAGE_FLOPS
+    assert mfu.least_s_per_image(cfg) == LEAST_S_PER_IMAGE
+
+
 def test_float32_train_steps_equal_the_package():
     """The train cell's driver in float32 on the tiny model: the measured
     package's Trainer against the reference, every compared number at

@@ -27,12 +27,15 @@ if str(ROOT) not in sys.path:
 
 def readings(cell, seeds, seconds, control, device="cuda", root=ROOT,
              fault=None):
+    from portbench.core.bench import modules_dir
+    from portbench.reference.model import modules_from
     from portbench.tools.faults import FAULTS, Patch
     patch = Patch()
     try:
         plant = FAULTS[fault](patch) if fault else None
-        return _readings(cell, seeds, seconds, control, device, root, plant,
-                         fault)
+        with modules_from(modules_dir(root)):
+            return _readings(cell, seeds, seconds, control, device, root,
+                             plant, fault)
     finally:
         patch.undo()
 
